@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of genpose2_tpu for one NVIDIA H100.
+
+The package mirrors the JAX package's module layout. It imports neither JAX
+nor anything of ``genpose2_tpu``; what it needs from there (the config tree)
+is a copy of its own. Every Pallas kernel on the ported path is a CUDA C++
+kernel under ``ops/csrc/``, built by ``nvcc`` at first use (``ops/_cuda.py``).
+
+Ported so far: the ``dino='none'`` / ``pts_encoder='pointnet2'`` serving
+path (``training/agent.py``). ROADMAP.md lists what is still to port.
+"""
