@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one card and hold every
+"""Drive the PyTorch/CUDA port's serving paths on one card and hold every
 kernel against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with a CUDA card:
@@ -8,21 +8,27 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Phases, one JSON line each:
   device    nvidia-smi's name and power limit, torch's device name;
-  build     nvcc of the four kernel sources, all started together;
-  reference the tiny_test_config score agent on the card against the plain
-            versions on the CPU (the plain versions are held against the JAX
-            package by tests/test_torch_port_*.py);
+  build     nvcc of the seven kernel sources, all started together;
+  reference tiny_test_config (dino='none') and tiny_flagship_config
+            (dino='pointwise') agents on the card against the plain versions
+            on the CPU (the plain versions are held against the JAX package by
+            tests/test_torch_port_*.py); each stage gets the CPU's input;
   kernels   each kernel against its plain version on the card, at the shapes
-            of the main path, in float32 and in bf16 (discrete outputs exact);
-  request   four requests through PoseAgent / ScaleAgent at full width
-            (B=64 objects, 1024 points, K=50 candidates, 50 RK4 steps from
-            T0=0.55, energies at t=1e-5, retain 0.4 with clustering): three in
-            float32, one in bf16 settings. Launch counts are reset just before
-            and read just after each request; the score encoder's feature and
-            the candidates are recomputed with the plain versions on the card;
-  timing    CUDA-event times of each kernel and its plain version at the main
-            path's shapes, with the bound from this run's shapes and data.
-  profile   torch.profiler device time by kernel name over one float32
+            of the main paths, in float32 and in bf16 (discrete outputs exact);
+  request   requests through PoseAgent / ScaleAgent at full width (B=64
+            objects, 1024 points, K=50 candidates, 50 RK4 steps from T0=0.55,
+            energies at t=1e-5, retain 0.4 with clustering): dino='none' once
+            in float32 and once in bf16; the flagship dino='pointwise' path
+            (DINOv3 ViT-S+/16 on 256-px crops, ImgEncoder, Fus PointNet++)
+            twice in bench.py's all-bf16 settings and once in float32. The ViT
+            runs once per request and the energy agent reuses its layers.
+            Launch counts are reset just before and read just after each
+            request; the score feature and the candidates are recomputed with
+            the plain versions on the card;
+  timing    CUDA-event times of each kernel, its plain version and, where one
+            PyTorch call computes the same function, that call, at the main
+            paths' shapes, with the bound from this run's shapes and data;
+  profile   torch.profiler device time by kernel name over one bf16 flagship
             request, and the device's busy share against the warm requests.
 Then the kernels table, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints no
@@ -38,7 +44,7 @@ import time
 import traceback
 
 SEED = 0
-B, N, K, STEPS, T0 = 64, 1024, 50, 50, 0.55
+B, N, K, STEPS, T0, S = 64, 1024, 50, 50, 0.55, 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 outside the tensor cores; dense bf16
 FAILED = []
@@ -77,13 +83,19 @@ def cuda_ms(fn, reps, warmup=1):
     return a.elapsed_time(b) / reps
 
 
-def bound_ms(nbytes, ops, dtype):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+def bound_ms(nbytes, ops):
+    """ops: {dtype: operations}; the operations' time is the sum over types."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS[dt] for dt, n in ops.items())
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def rel_err(a, b):
+    return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
 
 def object_clouds(gen, device):
@@ -130,8 +142,12 @@ def main():
 
     import dataclasses
 
-    from genpose2_tpu_torch.config import default_config, tiny_test_config
+    import torch.nn.functional as F
+
+    from genpose2_tpu_torch.config import (ModelConfig, PointNet2Config, default_config,
+                                           tiny_flagship_config, tiny_test_config)
     from genpose2_tpu_torch.eval.aggregate import aggregate_candidates
+    from genpose2_tpu_torch.models.attention import EfficientRelativePositionalEncoding
     from genpose2_tpu_torch.models.fast_encoder import stage_arguments
     from genpose2_tpu_torch.models.scorenet import fast_score_weights
     from genpose2_tpu_torch.ops import _cuda
@@ -139,8 +155,14 @@ def main():
     from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
     from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage, fused_sa_stage_plain
     from genpose2_tpu_torch.ops.grouping import gather_points
+    from genpose2_tpu_torch.ops.layernorm import (LN_EPS, fast_add_layernorm,
+                                                  fast_add_layernorm_plain,
+                                                  fast_residual_layernorm,
+                                                  fast_residual_layernorm_plain)
     from genpose2_tpu_torch.ops.ode_rk4 import (compute_dtype_of, fused_rk4_integrate,
                                                 fused_rk4_plain)
+    from genpose2_tpu_torch.ops.relpe_attention import relpe_attention, relpe_attention_plain
+    from genpose2_tpu_torch.ops.vit_attention import vit_attention_tm, vit_attention_tm_plain
     from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent
 
     torch.set_grad_enabled(False)
@@ -166,53 +188,94 @@ def main():
     if FAILED:
         return 1
 
-    def config(dtype):
+    def none_config(dtype):
         cfg = default_config()
         model = dataclasses.replace(
             cfg.model, dino="none", backbone="none", score_dtype=dtype,
             pointnet2=dataclasses.replace(cfg.model.pointnet2, compute_dtype=dtype))
         return cfg.replace(model=model)
 
+    def flagship_config(dtype):
+        """bench.py's flagship config (bf16), or the same in float32."""
+        return default_config().replace(model=ModelConfig(
+            dino="pointwise", pointnet2=PointNet2Config(compute_dtype=dtype),
+            backbone_dtype=dtype, score_dtype=dtype))
+
     gen = torch.Generator().manual_seed(SEED)
-    cfg32 = config("float32")
-    score = PoseAgent(cfg32, "score", device=dev)
-    energy = PoseAgent(cfg32, "energy", device=dev)
-    scale = ScaleAgent(cfg32, device=dev)
-    for agent in (score, energy, scale):
-        randomize(agent.model, gen)
-    agents = {"float32": (score, energy, scale)}
-    for dtype in ("bfloat16",):
-        cfg = config(dtype)
-        s, e = PoseAgent(cfg, "score", device=dev), PoseAgent(cfg, "energy", device=dev)
-        s.model.load_state_dict(score.model.state_dict())
-        e.model.load_state_dict(energy.model.state_dict())
-        agents[dtype] = (s, e, scale)
-    plain_samplers = {}
-    for dtype, (s, _, _) in agents.items():
-        cfg = s.cfg.replace(sampler=dataclasses.replace(s.cfg.sampler, fused_fixed=False))
-        plain_samplers[dtype] = PoseAgent(cfg, "score", device=dev)
-        plain_samplers[dtype].model.load_state_dict(s.model.state_dict())
+
+    def make_agents(config):
+        """{dtype: (score, energy, scale, plain sampler)}, one set of random
+        weights shared by the dtypes."""
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = config(dtype)
+            s, e = PoseAgent(cfg, "score", device=dev), PoseAgent(cfg, "energy", device=dev)
+            plain_cfg = cfg.replace(sampler=dataclasses.replace(cfg.sampler, fused_fixed=False))
+            ps = PoseAgent(plain_cfg, "score", device=dev)
+            if not out:
+                for agent in (s, e):
+                    randomize(agent.model, gen)
+                    if agent.provider is not None:
+                        randomize(agent.provider.vit, gen)
+                sc = ScaleAgent(cfg, device=dev)
+                randomize(sc.model, gen)
+            else:
+                s0, e0, sc, _ = out["float32"]
+                s.model.load_state_dict(s0.model.state_dict())
+                e.model.load_state_dict(e0.model.state_dict())
+                if s.provider is not None:
+                    s.provider.vit.load_state_dict(s0.provider.vit.state_dict())
+            ps.model.load_state_dict(s.model.state_dict())
+            if ps.provider is not None:
+                ps.provider.vit.load_state_dict(s.provider.vit.state_dict())
+            out[dtype] = (s, e, sc, ps)
+        return out
+
+    paths = {"none": make_agents(none_config), "pointwise": make_agents(flagship_config)}
 
     @phase("reference")
     def reference():
-        tiny = tiny_test_config()
-        cpu = PoseAgent(tiny, "score", device="cpu")
-        randomize(cpu.model, gen)
-        card = PoseAgent(tiny, "score", device=dev)
-        card.model.load_state_dict(cpu.model.state_dict())
-        pts = torch.rand(4, tiny.model.num_points, 3, generator=gen) * 0.3
-        prior = torch.randn(4 * 8, 9, generator=gen) * 0.5
-        batch = {"pts": pts, "pts_center": pts.mean(1)}
-        f_cpu, _ = cpu.extract_features(batch)
-        f_card, _ = card.extract_features({k: v.to(dev) for k, v in batch.items()})
-        p_cpu = cpu.sample_candidates(batch, repeat_num=8, T0=T0, num_steps=10, prior=prior)
-        p_card = card.sample_candidates({k: v.to(dev) for k, v in batch.items()}, repeat_num=8,
-                                        T0=T0, num_steps=10, prior=prior)
-        errs = {"feature": max_err(f_card.cpu(), f_cpu), "candidates": max_err(p_card.cpu(), p_cpu)}
-        emit({"phase": "reference", "config": "tiny_test_config", "max_abs_err": errs,
-              "tolerance": {"feature": "rtol=atol=1e-4", "candidates": "rtol=1e-4, atol=5e-4"}})
-        torch.testing.assert_close(f_card.cpu(), f_cpu, rtol=1e-4, atol=1e-4)
-        torch.testing.assert_close(p_card.cpu(), p_cpu, rtol=1e-4, atol=5e-4)
+        line = {"phase": "reference"}
+        for name, tiny in (("tiny_test_config", tiny_test_config()),
+                           ("tiny_flagship_config", tiny_flagship_config())):
+            cpu = PoseAgent(tiny, "score", device="cpu")
+            randomize(cpu.model, gen)
+            card = PoseAgent(tiny, "score", device=dev)
+            card.model.load_state_dict(cpu.model.state_dict())
+            m = tiny.model
+            pts = torch.rand(4, m.num_points, 3, generator=gen) * 0.3
+            prior = torch.randn(4 * 8, 9, generator=gen) * 0.5
+            batch = {"pts": pts, "pts_center": pts.mean(1)}
+            errs, tol = {}, {}
+            if m.dino == "pointwise":
+                randomize(cpu.provider.vit, gen)
+                card.provider.vit.load_state_dict(cpu.provider.vit.state_dict())
+                batch["roi_rgb"] = torch.randn(4, m.img_size, m.img_size, 3, generator=gen)
+                batch["roi_xs"] = torch.randint(0, m.img_size, (4, m.num_points), generator=gen)
+                batch["roi_ys"] = torch.randint(0, m.img_size, (4, m.num_points), generator=gen)
+                l_cpu = cpu.with_image_features(batch)["dino_layers"]
+                l_card = card.with_image_features({k: v.to(dev) for k, v in batch.items()})
+                errs["dino_layers"] = max(max_err(a.cpu(), b) for a, b in
+                                          zip(l_card["dino_layers"], l_cpu))
+                tol["dino_layers"] = 1e-4  # float32 summation order through 2 blocks
+                batch["dino_layers"] = l_cpu
+            on_card = {k: (v.to(dev) if torch.is_tensor(v) else [t.to(dev) for t in v])
+                       for k, v in batch.items()}
+            f_cpu, _ = cpu.extract_features(batch)
+            f_card, _ = card.extract_features(on_card)
+            p_cpu = cpu.sample_candidates(batch, repeat_num=8, T0=T0, num_steps=10,
+                                          features=(f_cpu, None), prior=prior)
+            p_card = card.sample_candidates(on_card, repeat_num=8, T0=T0, num_steps=10,
+                                            features=(f_cpu.to(dev), None), prior=prior)
+            errs["feature"] = max_err(f_card.cpu(), f_cpu)
+            errs["candidates"] = max_err(p_card.cpu(), p_cpu)
+            # the JAX package's float32 bounds: encoder (tests/test_models.py:446),
+            # fused RK4 against the scan (tests/test_ode_fused.py:112)
+            tol["feature"], tol["candidates"] = 2e-4, 5e-4
+            line[name] = {"max_abs_err": errs, "tolerance": tol}
+            emit(dict(line, config=name))
+            for k in errs:
+                assert errs[k] <= tol[k], f"{name} {k}: {errs[k]} > {tol[k]}"
 
     reference()
 
@@ -221,16 +284,16 @@ def main():
     results = {}  # kernel entry name -> numbers for the kernels line
 
     def sa_stage_inputs(encoder, pts, pcfg):
-        """Each grouped stage's kernel arguments as the main path forms them
-        (density order at N >= 1024), the stages chained through the plain
-        versions; plus each scale's real rows (min(count, nsample), or 1)."""
+        """Each grouped stage's kernel arguments as the dino='none' path forms
+        them (density order at N >= 1024), the stages chained through the
+        plain versions; plus each scale's real rows (min(count, nsample), or 1)."""
         dt = compute_dtype_of(pcfg.compute_dtype)
-        S = gather_points(pts, fps_plain(pts, pcfg.npoints[0]))
+        S_ = gather_points(pts, fps_plain(pts, pcfg.npoints[0]))
         xyz, feats, stages = pts, None, []
         for sa in encoder.SA_modules:
             if sa.npoint is None:
                 break
-            nxs = S[:, :sa.npoint].contiguous()
+            nxs = S_[:, :sa.npoint].contiguous()
             inv = None
             if xyz.shape[1] >= 1024:
                 cnt = ball_count_plain(xyz, nxs, max(sa.radii))
@@ -244,7 +307,7 @@ def main():
             stages.append((xyz.contiguous(), nxs, args, sa.radii, sa.nsamples, rows))
             out = fused_sa_stage_plain(xyz, nxs, *args, sa.radii, sa.nsamples)
             feats = out if inv is None else gather_points(out, inv)
-            xyz = S[:, :sa.npoint]
+            xyz = S_[:, :sa.npoint]
         return stages
 
     def sa_cost(stage, dtype):
@@ -263,22 +326,51 @@ def main():
             ops += rows[s] * (2 * macs + 4 * h1)
         return nbytes, ops
 
+    # the Fus encoder's grouped stages: (M, C) of the rel-PE block after each
+    fus_cfg = flagship_config("float32").model.pointnet2
+    fus_stages = [(m, sum(w[-1] for w in mlps))
+                  for m, mlps in zip(fus_cfg.npoints, fus_cfg.mlps) if m is not None]
+    H_PE = fus_cfg.num_heads
+    S0 = gather_points(pts0, fps_plain(pts0, fus_cfg.npoints[0]))
+    pe_mod = EfficientRelativePositionalEncoding(H_PE).to(dev)
+    randomize(pe_mod, gen)
+    vit_cfg = flagship_config("float32").model
+    vit_heads, vit_dim = 6, vit_cfg.dino_dim
+    n_valid = 5 + (S // vit_cfg.patch_size) ** 2  # cls + 4 storage + 256 patches
+
+    def relpe_inputs(M, C):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen).to(dev)
+        return S0[:, :M].contiguous(), r(B, M, C), r(B, M, C), r(B, M, C)
+
+    relpe_in = [relpe_inputs(M, C) for M, C in fus_stages]
+    ln_in = [tuple(torch.randn(B, M, C, generator=gen).to(dev) for _ in range(2))
+             + tuple(torch.randn(C, generator=gen).to(dev) for _ in range(2))
+             for M, C in fus_stages]
+    vit_in = {dtype: tuple(torch.randn(B, n_valid + (-n_valid) % sub, vit_dim,
+                                       generator=gen).to(dev, compute_dtype_of(dtype))
+                           for _ in range(3))
+              for dtype, sub in (("float32", 8), ("bfloat16", 16))}
+    add_in = tuple(torch.randn(B, vit_in["bfloat16"][0].shape[1], vit_dim, generator=gen)
+                   .to(dev, torch.bfloat16) for _ in range(2)) \
+        + tuple(torch.randn(vit_dim, generator=gen).to(dev) for _ in range(3))
+
     @phase("kernels")
     def kernels():
         # FPS and ball count (float32 only)
         idx_k = furthest_point_sample(pts0, 512)
         idx_p = fps_plain(pts0, 512)
         fps_mismatch = int((idx_k != idx_p).sum())
-        S = gather_points(pts0, idx_p)
-        cnt_k = ball_count(pts0, S, 0.02)
-        cnt_p = ball_count_plain(pts0, S, 0.02)
+        cnt_k = ball_count(pts0, S0, 0.02)
+        cnt_p = ball_count_plain(pts0, S0, 0.02)
         bc_mismatch = int((cnt_k != cnt_p).sum())
         results["fps"] = {"max_abs_err": float(fps_mismatch), "tolerance": "exact"}
         results["ball_count"] = {"max_abs_err": float(bc_mismatch), "tolerance": "exact"}
         line = {"phase": "kernels", "fps_index_mismatches": fps_mismatch,
-                "ball_count_mismatches": bc_mismatch, "sa": {}, "rk4": {}}
+                "ball_count_mismatches": bc_mismatch, "sa": {}, "rk4": {}, "relpe": {},
+                "residual_ln": {}, "vit": {}}
         ok = fps_mismatch == 0 and bc_mismatch == 0
-        for dtype, (s, _, _) in agents.items():
+        for dtype, (s, _, _, _) in paths["none"].items():
             pcfg = s.cfg.model.pointnet2
             stages = sa_stage_inputs(s.model.pts_encoder, pts0, pcfg)
             errs, rel = [], []
@@ -295,9 +387,7 @@ def main():
             results[name] = {"max_abs_err": max(errs), "tolerance": f"{tol} of max|plain|",
                              "stages": stages}
             line["sa"][dtype] = {"max_abs_err": errs, "err_over_max": rel,
-                                 "real_rows": [st[5] for st in stages],
-                                 "slots": [[st[1].shape[0] * st[1].shape[1] * n
-                                            for n in st[4]] for st in stages]}
+                                 "real_rows": [st[5] for st in stages]}
             # RK4 at the main path's shape: 3200 rows, 50 steps
             feat, _ = s.extract_features({"pts": pts0}, plain=True)
             w = fast_score_weights(s.model.pose_score_net, feat.repeat_interleave(K, 0))
@@ -305,7 +395,6 @@ def main():
             xk = fused_rk4_integrate(x0, w, s.sde, T0, STEPS, dtype)
             xp = fused_rk4_plain(x0, w, s.sde, T0, STEPS, dtype)
             err = max_err(xk, xp)
-            scale_ = float(xp.abs().max())
             # f32: the JAX package's bound for the fused kernel against the
             # scan; bf16: the kernel keeps the t rows in f32 where the scan
             # rounds them into its bf16 product, so it is looser
@@ -315,7 +404,58 @@ def main():
             name = "fused_rk4" if dtype == "float32" else "fused_rk4.bf16"
             results[name] = {"max_abs_err": err, "tolerance": f"atol={tol[0]:.3g}, rtol={tol[1]}",
                              "args": (x0, w, s.sde)}
-            line["rk4"][dtype] = {"max_abs_err": err, "max_abs": scale_, "within": close}
+            line["rk4"][dtype] = {"max_abs_err": err, "within": close}
+
+        # rel-PE attention at the Fus encoder's four stage shapes; the JAX
+        # package's bounds for its kernel (tests/test_ops.py:395, 405)
+        for dtype, (rtol, atol) in (("float32", (2e-4, 2e-5)), ("bfloat16", (2e-2, 2e-2))):
+            errs, within = [], True
+            for xyz, q, k, v in relpe_in:
+                got = relpe_attention(xyz, q, k, v, pe_mod, H_PE, dtype)
+                want = relpe_attention_plain(xyz, q, k, v, pe_mod, H_PE, dtype)
+                errs.append(max_err(got, want))
+                within = within and bool(torch.allclose(got, want, rtol=rtol, atol=atol))
+            ok = ok and within
+            name = "relpe_attention" if dtype == "float32" else "relpe_attention.bf16"
+            results[name] = {"max_abs_err": max(errs), "tolerance": f"rtol={rtol}, atol={atol}"}
+            line["relpe"][dtype] = {"max_abs_err": errs, "within": within}
+        # residual LayerNorm at the four stage shapes (float32 on the path;
+        # bf16 too): the JAX LayerNorm bound 1e-5, bf16 outputs 2e-2
+        for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+            errs, within = [], True
+            for x, h, sc, bi in ln_in:
+                xd, hd = x.to(compute_dtype_of(dtype)), h.to(compute_dtype_of(dtype))
+                got = fast_residual_layernorm(xd, hd, sc, bi)
+                want = fast_residual_layernorm_plain(xd, hd, sc, bi)
+                errs.append(max_err(got, want))
+                within = within and bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                                        atol=tol))
+            ok = ok and within
+            name = "residual_layernorm" if dtype == "float32" else "residual_layernorm.bf16"
+            results[name] = {"max_abs_err": max(errs), "tolerance": f"rtol=atol={tol}"}
+            line["residual_ln"][dtype] = {"max_abs_err": errs, "within": within}
+        # add + LayerNorm on the ViT's bf16 stream (64, 272, 384)
+        x2k, lnk = fast_add_layernorm(*add_in)
+        x2p, lnp = fast_add_layernorm_plain(*add_in)
+        err = max(max_err(x2k, x2p), max_err(lnk, lnp))
+        within = bool(torch.allclose(x2k.float(), x2p.float(), rtol=2e-2, atol=2e-2)
+                      and torch.allclose(lnk.float(), lnp.float(), rtol=2e-2, atol=2e-2))
+        ok = ok and within
+        results["add_layernorm"] = {"max_abs_err": err, "tolerance": "rtol=atol=2e-2 (bf16 out)"}
+        line["add_ln"] = {"max_abs_err": err, "within": within}
+        # ViT attention, (64, 264, 384) float32 and (64, 272, 384) bf16, on the
+        # n_valid real rows: the JAX bounds (tests/test_ops.py:546, 566)
+        for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+            q, k, v = vit_in[dtype]
+            got = vit_attention_tm(q, k, v, vit_heads, n_valid)
+            want = vit_attention_tm_plain(q, k, v, vit_heads, n_valid)
+            err = max_err(got[:, :n_valid], want[:, :n_valid])
+            within = bool(torch.allclose(got[:, :n_valid], want[:, :n_valid], rtol=tol, atol=tol)
+                          and torch.isfinite(got).all())
+            ok = ok and within
+            name = "vit_attention" if dtype == "float32" else "vit_attention.bf16"
+            results[name] = {"max_abs_err": err, "tolerance": f"rtol=atol={tol}"}
+            line["vit"][dtype] = {"max_abs_err": err, "within": within}
         line["ok"] = ok
         line["tolerance"] = {k: v["tolerance"] for k, v in results.items()}
         emit(line)
@@ -327,14 +467,21 @@ def main():
     # ---------------------------------------------------------------- requests
     per_request = []
 
-    def new_request(dtype):
+    def new_request(path, dtype):
         pts = object_clouds(gen, dev)
-        prior = agents[dtype][0].sde.prior_sample((B * K, 9), T=T0, generator=gen).to(dev)
-        return {"pts": pts, "pts_center": pts.mean(1)}, prior
+        prior = paths[path][dtype][0].sde.prior_sample((B * K, 9), T=T0, generator=gen).to(dev)
+        batch = {"pts": pts, "pts_center": pts.mean(1)}
+        if path == "pointwise":
+            batch["roi_rgb"] = torch.randn(B, S, S, 3, generator=gen).to(dev)
+            batch["roi_xs"] = torch.randint(0, S, (B, N), generator=gen).to(dev)
+            batch["roi_ys"] = torch.randint(0, S, (B, N), generator=gen).to(dev)
+        return batch, prior
 
-    def serve(dtype, batch, prior):
-        """One request through the agents, as a user calls them."""
-        s, e, sc = agents[dtype]
+    def serve(path, dtype, raw, prior):
+        """One request through the agents, as a user calls them: the backbone
+        once (score agent), its layers shared with the energy agent."""
+        s, e, sc, _ = paths[path][dtype]
+        batch = s.with_image_features(raw)
         feats = s.extract_features(batch)
         poses = s.sample_candidates(batch, repeat_num=K, T0=T0, num_steps=STEPS,
                                     features=feats, prior=prior)
@@ -346,20 +493,29 @@ def main():
         lengths = sc.predict(feats[0], agg["rotation"])
         return feats, poses, en, agg, lengths
 
+    def expected_counts(path, dtype):
+        want = dict.fromkeys(_cuda.KERNELS, 0)
+        want.update(fps=2, ball_count=2, fused_sa_stage=8, fused_rk4=1)
+        if path == "pointwise":
+            want.update(relpe_attention=8, residual_layernorm=16, vit_attention=12,
+                        add_layernorm=12 if dtype == "bfloat16" else 0)
+        return want
+
     @phase("request")
     def requests():
-        expected = {"fps": 2, "ball_count": 2, "fused_sa_stage": 8, "fused_rk4": 1}
         ok = True
-        for r, dtype in enumerate(("float32", "float32", "float32", "bfloat16")):
-            s = agents[dtype][0]
-            batch, prior = new_request(dtype)
+        order = [("none", "float32"), ("none", "bfloat16"), ("pointwise", "bfloat16"),
+                 ("pointwise", "bfloat16"), ("pointwise", "float32")]
+        for r, (path, dtype) in enumerate(order):
+            s, _, _, ps = paths[path][dtype]
+            raw, prior = new_request(path, dtype)
             torch.cuda.synchronize()
             _cuda.reset_launch_counts()
             t0 = time.perf_counter()
-            feats, poses, en, agg, lengths = serve(dtype, batch, prior)
+            feats, poses, en, agg, lengths = serve(path, dtype, raw, prior)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
-            counts = {k: _cuda.launch_counts[k] for k in expected}
+            counts = {k: _cuda.launch_counts[k] for k in _cuda.KERNELS}
 
             R = agg["rotation"]
             eye = torch.eye(3, device=dev).expand_as(R)
@@ -369,27 +525,32 @@ def main():
                          (feats[0], poses, en, R, agg["translation"], lengths))
             shapes = [tuple(feats[0].shape), tuple(poses.shape), tuple(en.shape),
                       tuple(lengths.shape)]
-            f_plain, _ = s.extract_features(batch, plain=True)
-            p_plain = plain_samplers[dtype].sample_candidates(
-                batch, repeat_num=K, T0=T0, num_steps=STEPS, features=(feats[0], None),
-                prior=prior)
-            f_err = max_err(feats[0], f_plain) / max(float(f_plain.abs().max()), 1e-30)
+            f_plain, _ = s.extract_features(s.with_image_features(raw, plain=True), plain=True)
+            p_plain = ps.sample_candidates(raw, repeat_num=K, T0=T0, num_steps=STEPS,
+                                           features=(feats[0], None), prior=prior)
+            f_err = rel_err(feats[0], f_plain)
             p_err = max_err(poses, p_plain)
-            # feature: max error over max |plain|, as in the kernels phase;
-            # candidates: the JAX package's bound for its fused kernel against
-            # its scan after denoise and renormalisation (f32), and the bf16
-            # bound of the kernels phase carried through those steps (bf16)
-            f_tol, p_tol = (1e-4, 5e-4) if dtype == "float32" else (2e-2, 2e-2)
-            good = (counts == expected and finite and orth < 1e-4 and det < 1e-4
+            # feature: max error over max |plain| (f32: summation order through
+            # the ViT and the encoders; bf16: flips of bf16 roundings carried
+            # through 12 ViT blocks and 5 encoder stages); candidates: the JAX
+            # package's bound for its fused kernel against its scan after
+            # denoise and renormalisation (f32), the kernels phase's bf16
+            # bound carried through those steps (bf16)
+            if dtype == "float32":
+                f_tol, p_tol = (1e-4 if path == "none" else 2e-4), 5e-4
+            else:
+                f_tol, p_tol = (2e-2 if path == "none" else 5e-2), 2e-2
+            want_counts = expected_counts(path, dtype)
+            good = (counts == want_counts and finite and orth < 1e-4 and det < 1e-4
                     and shapes == [(B, 1024), (B, K, 9), (B, K, 2), (B, 3)]
                     and f_err <= f_tol and p_err <= p_tol)
             ok = ok and good
-            per_request.append({"dtype": dtype, "counts": counts, "ms": ms})
-            emit({"phase": "request", "index": r, "dtype": dtype, "ok": good, "request_ms": ms,
-                  "launches": counts, "finite": finite, "orthonormality_err": orth,
-                  "det_err": det, "shapes": shapes, "feature_err_over_max": f_err,
-                  "feature_tol": f_tol, "candidates_max_abs_err": p_err,
-                  "candidates_tol": p_tol})
+            per_request.append({"path": path, "dtype": dtype, "counts": counts, "ms": ms})
+            emit({"phase": "request", "index": r, "path": path, "dtype": dtype, "ok": good,
+                  "request_ms": ms, "launches": counts, "expected": want_counts,
+                  "finite": finite, "orthonormality_err": orth, "det_err": det,
+                  "shapes": shapes, "feature_err_over_max": f_err, "feature_tol": f_tol,
+                  "candidates_max_abs_err": p_err, "candidates_tol": p_tol})
         if not ok:
             raise AssertionError("a request failed its checks")
 
@@ -400,30 +561,31 @@ def main():
 
     @phase("timing")
     def timing():
+        dtyped = ("fused_sa_stage", "fused_rk4", "relpe_attention", "vit_attention")
         launches = {}
         for req in per_request:
             for k, v in req["counts"].items():
-                key = k if req["dtype"] == "float32" or k in ("fps", "ball_count") else f"{k}.bf16"
+                key = f"{k}.bf16" if req["dtype"] == "bfloat16" and k in dtyped else k
                 launches[key] = launches.get(key, 0) + v
 
-        def entry(name, source, replaces, ms, plain_ms, nbytes, ops, dtype):
-            b, by = bound_ms(nbytes, ops, dtype)
+        def entry(name, source, replaces, ms, plain_ms, nbytes, ops, library_ms=None):
+            b, by = bound_ms(nbytes, ops)
             r = results.get(name, {})
             table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                           "launches": launches.get(name, 0), "max_abs_err": r.get("max_abs_err"),
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                          "library_ms": None})
+                          "library_ms": library_ms})
 
+        csrc = "genpose2_tpu_torch/ops/csrc/"
         ms = cuda_ms(lambda: furthest_point_sample(pts0, 512), 20)
-        pms = cuda_ms(lambda: fps_plain(pts0, 512), 3)
-        entry("fps", "genpose2_tpu_torch/ops/csrc/fps.cu", "genpose2_tpu/ops/fps.py:114",
-              ms, pms, B * N * 12 + B * 512 * 4, 511 * B * N * 10, "float32")
-        S = gather_points(pts0, fps_plain(pts0, 512))
-        ms = cuda_ms(lambda: ball_count(pts0, S, 0.02), 50)
-        pms = cuda_ms(lambda: ball_count_plain(pts0, S, 0.02), 10)
-        entry("ball_count", "genpose2_tpu_torch/ops/csrc/ball_count.cu",
+        pms = cuda_ms(lambda: fps_plain(pts0, 512), 2)
+        entry("fps", csrc + "fps.cu", "genpose2_tpu/ops/fps.py:114",
+              ms, pms, B * N * 12 + B * 512 * 4, {"float32": 511 * B * N * 10})
+        ms = cuda_ms(lambda: ball_count(pts0, S0, 0.02), 50)
+        pms = cuda_ms(lambda: ball_count_plain(pts0, S0, 0.02), 10)
+        entry("ball_count", csrc + "ball_count.cu",
               "genpose2_tpu/ops/ball_query_pallas.py:178", ms, pms,
-              B * (N + 512) * 12 + B * 512 * 4, 9 * B * 512 * N, "float32")
+              B * (N + 512) * 12 + B * 512 * 4, {"float32": 9 * B * 512 * N})
         per_stage = {}
         for dtype, name in (("float32", "fused_sa_stage"), ("bfloat16", "fused_sa_stage.bf16")):
             stages = results[name]["stages"]
@@ -432,12 +594,12 @@ def main():
                 xyz, nxs, args, radii, nsamples, _ = st
                 ks.append(cuda_ms(lambda: fused_sa_stage(xyz, nxs, *args, radii, nsamples), 10))
                 ps.append(cuda_ms(lambda: fused_sa_stage_plain(xyz, nxs, *args, radii,
-                                                               nsamples), 3))
+                                                               nsamples), 2))
                 b_, o_ = sa_cost(st, dtype)
                 nb, ops = nb + b_, ops + o_
-            per_stage[dtype] = {"kernel_ms": ks, "plain_ms": ps}
-            entry(name, "genpose2_tpu_torch/ops/csrc/fused_sa.cu",
-                  "genpose2_tpu/ops/fused_sa.py:629", sum(ks), sum(ps), nb, ops, dtype)
+            per_stage[name] = {"kernel_ms": ks, "plain_ms": ps}
+            entry(name, csrc + "fused_sa.cu", "genpose2_tpu/ops/fused_sa.py:629",
+                  sum(ks), sum(ps), nb, {dtype: ops})
         for dtype, name in (("float32", "fused_rk4"), ("bfloat16", "fused_rk4.bf16")):
             x0, w, sde = results[name]["args"]
             R, D = x0.shape
@@ -447,41 +609,114 @@ def main():
             macs = D * P1 + P1 * P2 + P2 * H1 + H1 * D
             esize = 2 if dtype == "bfloat16" else 4
             nbytes = R * D * 8 + R * H1 * 4 + macs * esize + STEPS * (3 * H1 + 7) * 4
-            ops = STEPS * 4 * R * 2 * macs
             ms = cuda_ms(lambda: fused_rk4_integrate(x0, w, sde, T0, STEPS, dtype), 5)
-            pms = cuda_ms(lambda: fused_rk4_plain(x0, w, sde, T0, STEPS, dtype), 2)
-            entry(name, "genpose2_tpu_torch/ops/csrc/ode_rk4.cu",
-                  "genpose2_tpu/ops/ode_rk4.py:233", ms, pms, nbytes, ops, dtype)
-        emit({"phase": "timing", "ok": True, "sa_per_stage_ms": per_stage,
-              "request_ms": [r["ms"] for r in per_request],
-              "note": "ms of fused_sa_stage entries: the four stage launches of one encoder "
-                      "forward; launches: summed over the four requests"})
+            pms = cuda_ms(lambda: fused_rk4_plain(x0, w, sde, T0, STEPS, dtype), 1)
+            entry(name, csrc + "ode_rk4.cu", "genpose2_tpu/ops/ode_rk4.py:233", ms, pms,
+                  nbytes, {dtype: STEPS * 4 * R * 2 * macs})
+
+        # rel-PE: the four stage launches of one encoder forward. Bias per
+        # (query, key) pair: ~14 operations for dist and the unit vector, 10 per
+        # hidden channel (16), 4 per channel and head; softmax ~5 per score;
+        # the two products 2 * 2 * D per score (in the compute dtype)
+        for dtype in ("float32", "bfloat16"):
+            name = "relpe_attention" if dtype == "float32" else "relpe_attention.bf16"
+            esize = 2 if dtype == "bfloat16" else 4
+            cdt = compute_dtype_of(dtype)
+            ks, ps, nb, f32_ops, mm_ops = [], [], 0, 0, 0
+            for (M, C), (xyz, q, k, v) in zip(fus_stages, relpe_in):
+                qd, kd, vd = q.to(cdt), k.to(cdt), v.to(cdt)
+                ks.append(cuda_ms(lambda: relpe_attention(xyz, qd, kd, vd, pe_mod, H_PE, dtype),
+                                  10))
+                ps.append(cuda_ms(lambda: relpe_attention_plain(xyz, qd, kd, vd, pe_mod, H_PE,
+                                                                dtype), 2))
+                pairs = B * M * M
+                nb += B * M * 12 + 3 * B * M * C * esize + B * M * C * 4
+                f32_ops += pairs * (14 + 16 * 10 + 16 * H_PE * 4) + 5 * pairs * H_PE
+                mm_ops += 4 * pairs * C  # H heads x 2 products x 2 D
+            per_stage[name] = {"kernel_ms": ks, "plain_ms": ps}
+            entry(name, csrc + "relpe_attention.cu", "genpose2_tpu/ops/relpe_attention.py:216",
+                  sum(ks), sum(ps), nb, {"float32": f32_ops, dtype: mm_ops} if dtype != "float32"
+                  else {"float32": f32_ops + mm_ops})
+
+        # residual LN: the eight launches of one encoder forward (two per stage);
+        # library: F.layer_norm of the precomputed sum x + h (float32)
+        ks, ps, ls, nb, ops = [], [], [], 0, 0
+        for x, h, sc, bi in ln_in:
+            s_ = x + h
+            ks.append(2 * cuda_ms(lambda: fast_residual_layernorm(x, h, sc, bi), 20))
+            ps.append(2 * cuda_ms(lambda: fast_residual_layernorm_plain(x, h, sc, bi), 5))
+            ls.append(2 * cuda_ms(lambda: F.layer_norm(s_, s_.shape[-1:], sc, bi, LN_EPS), 20))
+            nb += 2 * (3 * x.numel() * 4 + 2 * sc.numel() * 4)
+            ops += 2 * 9 * x.numel()
+        per_stage["residual_layernorm"] = {"kernel_ms": ks, "plain_ms": ps, "library_ms": ls}
+        entry("residual_layernorm", csrc + "layernorm.cu", "genpose2_tpu/ops/layernorm.py:126",
+              sum(ks), sum(ps), nb, {"float32": ops}, sum(ls))
+
+        # add + LN: one launch on (64, 272, 384) bf16; library: F.layer_norm of
+        # the precomputed bf16 sum
+        x, h, g, sc, bi = add_in
+        s_ = (x.float() + h.float() * g).to(torch.bfloat16)
+        ms = cuda_ms(lambda: fast_add_layernorm(*add_in), 50)
+        pms = cuda_ms(lambda: fast_add_layernorm_plain(*add_in), 10)
+        lms = cuda_ms(lambda: F.layer_norm(s_, s_.shape[-1:], sc.to(torch.bfloat16),
+                                           bi.to(torch.bfloat16), LN_EPS), 50)
+        entry("add_layernorm", csrc + "layernorm.cu", "genpose2_tpu/ops/layernorm.py:79",
+              ms, pms, 4 * x.numel() * 2 + 3 * g.numel() * 4, {"float32": 11 * x.numel()}, lms)
+
+        # ViT attention: one launch; library: scaled_dot_product_attention over
+        # the n_valid real tokens, head-major
+        for dtype in ("float32", "bfloat16"):
+            name = "vit_attention" if dtype == "float32" else "vit_attention.bf16"
+            q, k, v = vit_in[dtype]
+            Np = q.shape[1]
+            esize = q.element_size()
+            hd = vit_dim // vit_heads
+
+            def heads(t):
+                return t[:, :n_valid].reshape(B, n_valid, vit_heads, hd).transpose(1, 2) \
+                    .contiguous()
+
+            qh, kh, vh = heads(q), heads(k), heads(v)
+            ms = cuda_ms(lambda: vit_attention_tm(q, k, v, vit_heads, n_valid), 20)
+            pms = cuda_ms(lambda: vit_attention_tm_plain(q, k, v, vit_heads, n_valid), 5)
+            lms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
+            scores = B * vit_heads * Np * Np
+            entry(name, csrc + "vit_attention.cu", "genpose2_tpu/ops/vit_attention.py:203",
+                  ms, pms, 3 * B * Np * vit_dim * esize + B * Np * vit_dim * 4,
+                  {dtype: 4 * scores * hd, "float32": 5 * scores} if dtype != "float32"
+                  else {"float32": 4 * scores * hd + 5 * scores}, lms)
+        emit({"phase": "timing", "ok": True, "per_stage_ms": per_stage,
+              "request_ms": [{"path": r["path"], "dtype": r["dtype"], "ms": r["ms"]}
+                             for r in per_request],
+              "note": "ms of fused_sa_stage and relpe_attention entries: the four stage launches "
+                      "of one encoder forward; residual_layernorm: its eight launches; "
+                      "launches: summed over the requests"})
 
     timing()
 
     @phase("profile")
     def profile():
-        """Device time by kernel name over one float32 request, and the
+        """Device time by kernel name over one bf16 flagship request, and the
         device's busy share against the unprofiled warm request time."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
 
-        batch, prior = new_request("float32")
-        serve("float32", batch, prior)
+        raw, prior = new_request("pointwise", "bfloat16")
+        t0 = time.perf_counter()
+        serve("pointwise", "bfloat16", raw, prior)
         torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0)
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            serve("float32", batch, prior)
+            serve("pointwise", "bfloat16", raw, prior)
             torch.cuda.synchronize()
         rows = [(ev.device_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows)
-        warm = [r["ms"] for r in per_request[1:] if r["dtype"] == "float32"]
-        emit({"phase": "profile", "ok": True, "device_ms": busy,
-              "warm_request_ms": sum(warm) / max(len(warm), 1),
-              "busy_share": busy / (sum(warm) / max(len(warm), 1)) if warm else None,
-              "top": [{"ms": t, "calls": c, "name": k[:120]} for t, c, k in rows[:20]]})
+        emit({"phase": "profile", "ok": True, "request": "pointwise bfloat16",
+              "device_ms": busy, "warm_request_ms": warm_ms, "busy_share": busy / warm_ms,
+              "top": [{"ms": t, "calls": c, "name": k[:120]} for t, c, k in rows[:25]]})
 
     profile()
 

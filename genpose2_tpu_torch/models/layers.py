@@ -14,6 +14,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -68,7 +69,33 @@ class SharedMLP(nn.Module):
         return (W,) + fold_bn(lay.bn.bn)
 
 
-def fold_bn(bn: nn.BatchNorm2d):
+def mm(a: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """a @ w with both operands rounded to ``dt``, as float32. A bf16 product
+    is a bf16 matmul (float32 sums, the result rounded to bf16 as torch
+    returns it): the JAX package keeps that result in float32, which these
+    projections outside the kernels give up for the tensor cores."""
+    return (a.to(dt) @ w.to(dt)).float()
+
+
+def dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dt)``: operands and bias in dt, the result in dt."""
+    return x.to(dt) @ lin.weight.t().to(dt) + lin.bias.to(dt)
+
+
+def linear_resize_points(x: torch.Tensor, new_n: int) -> torch.Tensor:
+    """Linear resize along the point axis of (B, N, C), as
+    F.interpolate(mode='linear', align_corners=False); an exact 2x
+    downsample averages neighbouring pairs."""
+    N = x.shape[1]
+    if N == new_n:
+        return x
+    if N == 2 * new_n:
+        return 0.5 * (x[:, 0::2] + x[:, 1::2])
+    return F.interpolate(x.transpose(1, 2), size=new_n, mode="linear",
+                         align_corners=False).transpose(1, 2)
+
+
+def fold_bn(bn: nn.Module):
     """Eval-mode BatchNorm -> (a, c) with y = a * x + c."""
     a = bn.weight / torch.sqrt(bn.running_var + bn.eps)
     c = bn.bias - bn.running_mean * a

@@ -17,6 +17,9 @@ from typing import Optional, Sequence
 from torch import nn
 
 from genpose2_tpu_torch.config import PointNet2Config
+from genpose2_tpu_torch.models.attention import (EfficientRelativePositionalEncoding,
+                                                 GatedAttentionFusion,
+                                                 TransformerBlockWithRelativePE)
 from genpose2_tpu_torch.models.layers import SharedMLP
 
 
@@ -44,3 +47,26 @@ class PointNet2ClsMSG(nn.Module):
             in_channels = sa.out_channels
         self.SA_modules = nn.ModuleList(mods)
         self.out_channels = in_channels
+
+
+class PointNet2ClsMSGFus(PointNet2ClsMSG):
+    """The flagship encoder: the SA stack over [xyz, per-point DINO feature],
+    a rel-PE transformer block after every stage, and a gated fusion of the
+    (resized) DINO features before every stage but the first.
+
+    State dict layout (reference): ``SA_modules.*`` as above,
+    ``relative_pos_encoders.{k}`` for the grouped stages only (the GroupAll
+    stage's is dead in the reference and not kept), ``transformer_blocks.{k}``,
+    ``feature_fusions.{k-1}``. Its eval forward is
+    models/fast_encoder.py:fast_fus_forward."""
+
+    def __init__(self, cfg: PointNet2Config, dino_dim: int):
+        super().__init__(cfg, in_channels=dino_dim)
+        widths = [sa.out_channels for sa in self.SA_modules]
+        self.relative_pos_encoders = nn.ModuleDict({
+            str(k): EfficientRelativePositionalEncoding(cfg.num_heads)
+            for k, sa in enumerate(self.SA_modules) if sa.npoint is not None})
+        self.transformer_blocks = nn.ModuleList(
+            TransformerBlockWithRelativePE(w, cfg.num_heads) for w in widths)
+        self.feature_fusions = nn.ModuleList(
+            GatedAttentionFusion(w, dino_dim) for w in widths[:-1])

@@ -32,11 +32,16 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("fps", "ball_count", "fused_sa", "ode_rk4")
+SOURCES = ("fps", "ball_count", "fused_sa", "ode_rk4", "layernorm", "relpe_attention",
+           "vit_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# the launch_counts entry of each kernel wrapper
+KERNELS = ("fps", "ball_count", "fused_sa_stage", "fused_rk4", "residual_layernorm",
+           "add_layernorm", "relpe_attention", "vit_attention")
 
 launch_counts: collections.Counter = collections.Counter()
 

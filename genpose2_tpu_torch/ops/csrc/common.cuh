@@ -15,6 +15,28 @@ extern "C" const char* gp2_strerror(int code) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Number of floats rounded up to a multiple of 4, so that every section of a
+// shared-memory layout starts 16-byte aligned.
+__host__ __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
+
 // A matmul operand rounded to the compute type T and held as float: the JAX
 // reference casts the left operand to the weights' dtype before each dot
 // (jnp.dot(h.astype(W.dtype), W, preferred_element_type=f32)). A bf16 x bf16

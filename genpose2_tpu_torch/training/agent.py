@@ -1,11 +1,14 @@
 """Inference surface of the agents (port of genpose2_tpu/training/agent.py:
-PoseAgent.extract_features / sample_candidates / get_energy and
-ScaleAgent.predict). Training is not ported yet (see ROADMAP.md).
+PoseAgent.with_image_features / extract_features / sample_candidates /
+get_energy and ScaleAgent.predict). Training is not ported yet (see
+ROADMAP.md).
 
-Each agent owns its network (``.model``) on its device; weights come in
-through ``agent.model.load_state_dict`` in the reference layout
-(genpose2_tpu_torch/weights.py turns the JAX package's variables into it). The device is ``cuda`` unless the
-caller passes one; without a card and without a device the agents raise.
+Each agent owns its network (``.model``) and, with dino='pointwise', its
+frozen backbone (``.provider.vit``) on its device; weights come in through
+``agent.model.load_state_dict`` / ``agent.provider.vit.load_state_dict`` in
+the reference layouts (genpose2_tpu_torch/weights.py turns the JAX package's
+variables into them). The device is ``cuda`` unless the caller passes one;
+without a card and without a device the agents raise.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from genpose2_tpu_torch.config import Config
 from genpose2_tpu_torch.device import resolve_device
 from genpose2_tpu_torch.diffusion import init_sde, ode_sampler
 from genpose2_tpu_torch.models.posenet import GFObjectPose
+from genpose2_tpu_torch.models.provider import ImageFeatureProvider
 from genpose2_tpu_torch.models.scalenet import ScaleNet
 from genpose2_tpu_torch.models.scorenet import fast_score_weights
 from genpose2_tpu_torch.ops.ode_rk4 import fast_score
@@ -33,13 +37,34 @@ class PoseAgent:
         self.sde = init_sde(cfg.sde)
         self.model = GFObjectPose(cfg.model, self.sde.marginal_std, self.agent_type)
         self.model.to(self.device).eval()
+        # the frozen image backbone belongs to the agent, not to the model
+        self.provider = None
+        if cfg.model.dino != "none" and cfg.model.backbone != "none":
+            self.provider = ImageFeatureProvider(cfg.model)
+            self.provider.vit.to(self.device).eval()
+
+    def with_image_features(self, batch: dict, plain: bool = False) -> dict:
+        """The batch with ``dino_layers`` computed from ``roi_rgb`` (B, S, S, 3)
+        by the backbone, unless it carries them already (then the backbone does
+        not run). ``plain`` runs the plain versions of the backbone's kernels."""
+        if self.provider is None or "dino_layers" in batch or "roi_rgb" not in batch:
+            return batch
+        return dict(batch, dino_layers=self.provider.patch_features(batch["roi_rgb"], plain))
 
     @torch.no_grad()
     def extract_features(self, batch: dict, plain: bool = False):
-        """batch['pts'] (B, N, 3) -> (pts_feat (B, 1024), rgb_feat None).
-        ``plain`` runs the plain versions of the encoder's kernels."""
+        """batch['pts'] (B, N, 3) -> (pts_feat (B, C_final), rgb_feat None).
+        With dino='pointwise' the batch also carries ``roi_xs``/``roi_ys``
+        (B, N) and ``dino_layers`` or ``roi_rgb`` (see with_image_features).
+        ``plain`` runs the plain versions of the kernels."""
         pts = batch["pts"].to(self.device, torch.float32)
-        return self.model.extract_pts_feature(pts, plain=plain), None
+        if self.cfg.model.dino == "none":
+            return self.model.extract_pts_feature(pts, plain=plain), None
+        batch = self.with_image_features(batch, plain)
+        layers = [t.to(self.device, torch.float32) for t in batch["dino_layers"]]
+        feat = self.model.extract_pts_feature(pts, plain, layers, batch["roi_xs"].to(self.device),
+                                              batch["roi_ys"].to(self.device))
+        return feat, None
 
     @torch.no_grad()
     def sample_candidates(self, batch: dict, repeat_num: int = 50, T0: float = 1.0,

@@ -7,7 +7,9 @@ reference torch layout that the port's modules use. This is the exact inverse
 of genpose2_tpu/training/torch_ingest.py:convert_posenet_state_dict /
 convert_scalenet_state_dict (Dense kernel (in, out) -> Linear weight
 (out, in); SharedMLP Dense -> 1x1 conv (out, in, 1, 1); BatchNorm scale/bias
-+ mean/var -> weight/bias + running_mean/running_var).
++ mean/var -> weight/bias + running_mean/running_var). ``dinov3_state_dict``
+is the inverse of genpose2_tpu/models/vit.py:load_dinov3_state_dict for the
+frozen backbone, which the agent owns apart from GFObjectPose.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-class _StateDict:
+class StateDict:
     def __init__(self):
         self.sd: Dict[str, torch.Tensor] = {}
 
@@ -39,14 +41,26 @@ class _StateDict:
     def conv_bn(self, kernel, bn_p: dict, bn_s: dict, key: str) -> None:
         w = _t(kernel).t()
         self.sd[f"{key}.conv.weight"] = w.reshape(w.shape[0], w.shape[1], 1, 1).contiguous()
-        self.sd[f"{key}.bn.bn.weight"] = _t(bn_p["scale"])
-        self.sd[f"{key}.bn.bn.bias"] = _t(bn_p["bias"])
-        self.sd[f"{key}.bn.bn.running_mean"] = _t(bn_s["mean"])
-        self.sd[f"{key}.bn.bn.running_var"] = _t(bn_s["var"])
-        self.sd[f"{key}.bn.bn.num_batches_tracked"] = torch.tensor(0)
+        self.bn(bn_p, bn_s, f"{key}.bn.bn")
+
+    def bn(self, bn_p: dict, bn_s: dict, key: str) -> None:
+        self.sd[f"{key}.weight"] = _t(bn_p["scale"])
+        self.sd[f"{key}.bias"] = _t(bn_p["bias"])
+        self.sd[f"{key}.running_mean"] = _t(bn_s["mean"])
+        self.sd[f"{key}.running_var"] = _t(bn_s["var"])
+        self.sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def conv1x1(self, p: dict, key: str) -> None:
+        """Dense -> 1x1 Conv1d (weight (out, in, 1))."""
+        self.sd[f"{key}.weight"] = _t(p["kernel"]).t()[:, :, None].contiguous()
+        self.sd[f"{key}.bias"] = _t(p["bias"])
+
+    def layernorm(self, p: dict, key: str) -> None:
+        self.sd[f"{key}.weight"] = _t(p["scale"])
+        self.sd[f"{key}.bias"] = _t(p["bias"])
 
 
-def _pointnet2_cls(d: _StateDict, params, stats, cfg: PointNet2Config, prefix: str) -> None:
+def _pointnet2_cls(d: StateDict, params, stats, cfg: PointNet2Config, prefix: str) -> None:
     for k, npoint in enumerate(cfg.npoints):
         p, s = params[f"SetAbstractionMSG_{k}"], stats[f"SetAbstractionMSG_{k}"]
         for sc in range(len(cfg.mlps[k])):
@@ -63,7 +77,62 @@ def _pointnet2_cls(d: _StateDict, params, stats, cfg: PointNet2Config, prefix: s
                           f"{key}.layer{j + first}")
 
 
-def _pose_head(d: _StateDict, params, constants, regression_head: str, prefix: str) -> None:
+def relative_pe(d: StateDict, p: dict, key: str) -> None:
+    """EfficientRelativePositionalEncoding (Dense_0..4 in creation order)."""
+    for j, name in enumerate(("distance_encoder.0", "distance_encoder.2",
+                              "direction_encoder.0", "direction_encoder.2", "fusion")):
+        d.linear(p[f"Dense_{j}"], f"{key}.{name}")
+
+
+def gated_fusion(d: StateDict, p: dict, s: dict, key: str) -> None:
+    """GatedAttentionFusion: Dense_0 + BatchNorm_0 original transform,
+    Dense_1/2 channel attention, Conv_0 spatial attention, Dense_3 +
+    BatchNorm_1 gate, Dense_4 + BatchNorm_2 output."""
+    d.conv1x1(p["Dense_0"], f"{key}.original_transform.0")
+    d.bn(p["BatchNorm_0"], s["BatchNorm_0"], f"{key}.original_transform.1")
+    d.conv1x1(p["Dense_1"], f"{key}.channel_attention.1")
+    d.conv1x1(p["Dense_2"], f"{key}.channel_attention.3")
+    # (7, 2, 1) -> (1, 2, 7)
+    d.sd[f"{key}.spatial_attention.0.weight"] = _t(p["Conv_0"]["kernel"]).permute(2, 1, 0).contiguous()
+    d.conv1x1(p["Dense_3"], f"{key}.gate.0")
+    d.bn(p["BatchNorm_1"], s["BatchNorm_1"], f"{key}.gate.1")
+    d.conv1x1(p["Dense_4"], f"{key}.output_conv.0")
+    d.bn(p["BatchNorm_2"], s["BatchNorm_2"], f"{key}.output_conv.1")
+
+
+def _pointnet2_fus(d: StateDict, params, stats, cfg: PointNet2Config, prefix: str) -> None:
+    """The inverse of torch_ingest._convert_pointnet2_fus."""
+    _pointnet2_cls(d, params, stats, cfg, prefix)
+    for k, npoint in enumerate(cfg.npoints):
+        if npoint is not None:
+            relative_pe(d, params[f"EfficientRelativePositionalEncoding_{k}"],
+                        f"{prefix}relative_pos_encoders.{k}")
+        tb = params[f"TransformerBlockWithRelativePE_{k}"]
+        key = f"{prefix}transformer_blocks.{k}"
+        for w in ("wq", "wk", "wv", "wo"):
+            d.linear(tb["MultiheadAttentionWithRelativePE_0"][w], f"{key}.self_attn.{w}")
+        d.linear(tb["Dense_0"], f"{key}.linear1")
+        d.linear(tb["Dense_1"], f"{key}.linear2")
+        d.layernorm(tb["LayerNorm_0"], f"{key}.norm1")
+        d.layernorm(tb["LayerNorm_1"], f"{key}.norm2")
+        if k > 0:
+            name = f"GatedAttentionFusion_{k - 1}"
+            gated_fusion(d, params[name], stats[name], f"{prefix}feature_fusions.{k - 1}")
+
+
+def img_encoder(d: StateDict, p, key: str) -> None:
+    """The inverse of torch_ingest._convert_img_encoder."""
+    d.linear(p["Dense_0"], f"{key}.layer_attn.0")
+    d.linear(p["Dense_1"], f"{key}.layer_attn.2")
+    d.sd[f"{key}.rel_pos_emb.weight"] = _t(p["Embed_0"]["embedding"])
+    # (3, 3, in, out) -> (out, in, 3, 3)
+    d.sd[f"{key}.edge_guide.0.weight"] = _t(p["Conv_0"]["kernel"]).permute(3, 2, 0, 1).contiguous()
+    d.sd[f"{key}.edge_guide.0.bias"] = _t(p["Conv_0"]["bias"])
+    d.sd[f"{key}.geo_weight"] = _t(p["geo_weight"])
+    d.sd[f"{key}.edge_weight"] = _t(p["edge_weight"])
+
+
+def _pose_head(d: StateDict, params, constants, regression_head: str, prefix: str) -> None:
     d.sd[f"{prefix}t_encoder.0.W"] = _t(constants["GaussianFourierProjection_0"]["W"])
     d.linear(params["Dense_0"], f"{prefix}t_encoder.1")
     d.mlp(params["MLP_0"], f"{prefix}pose_encoder")
@@ -78,21 +147,53 @@ def _pose_head(d: _StateDict, params, constants, regression_head: str, prefix: s
 
 
 def posenet_state_dict(variables: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """GFObjectPose (score or energy, dino='none', pointnet2) variables -> the
-    port's GFObjectPose state dict."""
-    if cfg.dino != "none" or cfg.pts_encoder != "pointnet2":
-        raise NotImplementedError("only dino='none' with pts_encoder='pointnet2' is ported")
-    d = _StateDict()
+    """GFObjectPose (score or energy, dino='none' or 'pointwise', pointnet2)
+    variables -> the port's GFObjectPose state dict."""
+    if cfg.dino not in ("none", "pointwise") or cfg.pts_encoder != "pointnet2":
+        raise NotImplementedError(
+            "only dino='none' or 'pointwise' with pts_encoder='pointnet2' is ported")
+    d = StateDict()
     params, stats = variables["params"], variables.get("batch_stats", {})
-    _pointnet2_cls(d, params["pts_encoder"], stats["pts_encoder"], cfg.pointnet2, "pts_encoder.")
+    encoder = _pointnet2_fus if cfg.dino == "pointwise" else _pointnet2_cls
+    encoder(d, params["pts_encoder"], stats["pts_encoder"], cfg.pointnet2, "pts_encoder.")
+    if cfg.dino == "pointwise":
+        img_encoder(d, params["img_encoder"], "img_encoder")
     _pose_head(d, params["pose_net"], variables["constants"]["pose_net"], cfg.regression_head,
                "pose_score_net.")
     return d.sd
 
 
+def dinov3_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
+    """DinoV3ViT variables ({'params', 'constants'}) -> the DINOv3 torch state
+    dict that models/vit.py:DinoV3ViT loads; the inverse of
+    genpose2_tpu/models/vit.py:load_dinov3_state_dict (SwiGLU as separate
+    w1/w2/w3, ``ls*.gamma``, ``rope_embed.periods``)."""
+    d = StateDict()
+    p = variables["params"]
+    d.sd["cls_token"] = _t(p["cls_token"])
+    d.sd["storage_tokens"] = _t(p["storage_tokens"])
+    d.sd["rope_embed.periods"] = _t(variables["constants"]["rope_periods"])
+    # (p, p, 3, dim) -> (dim, 3, p, p)
+    d.sd["patch_embed.proj.weight"] = _t(p["patch_embed"]["kernel"]).permute(3, 2, 0, 1).contiguous()
+    d.sd["patch_embed.proj.bias"] = _t(p["patch_embed"]["bias"])
+    d.layernorm(p["norm"], "norm")
+    depth = sum(1 for name in p if name.startswith("block_"))
+    for i in range(depth):
+        blk, key = p[f"block_{i}"], f"blocks.{i}"
+        d.layernorm(blk["norm1"], f"{key}.norm1")
+        d.layernorm(blk["norm2"], f"{key}.norm2")
+        d.linear(blk["attn"]["qkv"], f"{key}.attn.qkv")
+        d.linear(blk["attn"]["proj"], f"{key}.attn.proj")
+        d.sd[f"{key}.ls1.gamma"] = _t(blk["ls1"])
+        d.sd[f"{key}.ls2.gamma"] = _t(blk["ls2"])
+        for w in ("w1", "w2", "w3"):
+            d.linear(blk[f"mlp_{w}"], f"{key}.mlp.{w}")
+    return d.sd
+
+
 def scalenet_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     """ScaleNet variables -> the port's ScaleNet state dict."""
-    d = _StateDict()
+    d = StateDict()
     d.mlp(variables["params"]["MLP_0"], "axes_encoder")
     d.mlp(variables["params"]["MLP_1"], "fusion_tail_length")
     return d.sd

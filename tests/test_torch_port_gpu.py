@@ -16,12 +16,18 @@ import torch
 
 from genpose2_tpu_torch.config import tiny_test_config
 from genpose2_tpu_torch.diffusion.sde import init_sde
+from genpose2_tpu_torch.models.attention import EfficientRelativePositionalEncoding
 from genpose2_tpu_torch.models.scorenet import PoseScoreNet, fast_score_weights
 from genpose2_tpu_torch.ops import _cuda
 from genpose2_tpu_torch.ops.ball_query import ball_count, ball_count_plain
 from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
 from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage, fused_sa_stage_plain
+from genpose2_tpu_torch.ops.layernorm import (fast_add_layernorm, fast_add_layernorm_plain,
+                                              fast_residual_layernorm,
+                                              fast_residual_layernorm_plain)
 from genpose2_tpu_torch.ops.ode_rk4 import fused_rk4_integrate, fused_rk4_plain
+from genpose2_tpu_torch.ops.relpe_attention import relpe_attention, relpe_attention_plain
+from genpose2_tpu_torch.ops.vit_attention import vit_attention_tm, vit_attention_tm_plain
 from genpose2_tpu_torch.training.agent import PoseAgent
 
 pytestmark = pytest.mark.gpu
@@ -109,6 +115,60 @@ def test_rk4_kernel_matches_plain(card, mode):
         want = fused_rk4_plain(x0, w, sde, 0.8, 10)
     # the JAX package's own bound for the fused kernel against the scan
     torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-4)
+
+
+def _normal(gen, shape, card, dtype=torch.float32):
+    return torch.randn(shape, generator=gen).to(card, dtype)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [48, 96, 384, 1024])
+def test_layernorm_kernels_match_plain(card, bf16, D):
+    g = torch.Generator().manual_seed(14)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    x, h = _normal(g, (3, 37, D), card, dt), _normal(g, (3, 37, D), card, dt)
+    gamma, scale, bias = (_normal(g, (D,), card) for _ in range(3))
+    # the same float32 statistics in another summation order; bf16 outputs
+    # are one rounding of the same float32 value
+    tol = 2e-2 if bf16 else 1e-5
+    torch.testing.assert_close(fast_residual_layernorm(x, h, scale, bias),
+                               fast_residual_layernorm_plain(x, h, scale, bias),
+                               rtol=tol, atol=tol)
+    for got, want in zip(fast_add_layernorm(x, h, gamma, scale, bias),
+                         fast_add_layernorm_plain(x, h, gamma, scale, bias)):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert _cuda.launch_counts["add_layernorm"] >= 1
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,C", [(512, 96), (256, 256), (128, 512), (64, 1024), (37, 32)])
+def test_relpe_attention_kernel_matches_plain(card, compute_dtype, M, C):
+    g = torch.Generator().manual_seed(15)
+    pe = _randomize(EfficientRelativePositionalEncoding(8), 16).to(card)
+    xyz = (torch.rand(2, M, 3, generator=g) * 0.3).to(card)
+    q, k, v = (_normal(g, (2, M, C), card) for _ in range(3))
+    with torch.no_grad():
+        got = relpe_attention(xyz, q, k, v, pe, 8, compute_dtype)
+        want = relpe_attention_plain(xyz, q, k, v, pe, 8, compute_dtype)
+    # the JAX package's bounds for its kernel against the modules
+    # (tests/test_ops.py:395, 405)
+    tol = (2e-4, 2e-5) if compute_dtype == "float32" else (2e-2, 2e-2)
+    torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("N,n_valid,H", [(272, 261, 6), (264, 261, 6), (32, 21, 6)])
+def test_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, H):
+    g = torch.Generator().manual_seed(17)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    C = 384 if N > 32 else 48
+    q, k, v = (_normal(g, (3, N, C), card, dt) for _ in range(3))
+    got = vit_attention_tm(q, k, v, H, n_valid=n_valid)
+    want = vit_attention_tm_plain(q, k, v, H, n_valid=n_valid)
+    # the JAX package's bounds (tests/test_ops.py:546, 566), on the real rows
+    tol = 2e-2 if bf16 else 1e-5
+    torch.testing.assert_close(got[:, :n_valid], want[:, :n_valid], rtol=tol, atol=tol)
+    assert bool(torch.isfinite(got).all())
 
 
 def test_tiny_serving_path_on_card_matches_cpu(card):
