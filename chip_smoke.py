@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one card and hold every
-kernel against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's serving and training paths on one card and
+hold every kernel against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -8,13 +8,16 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Phases, one JSON line each:
   device    nvidia-smi's name and power limit, torch's device name;
-  build     nvcc of the seven kernel sources, all started together;
+  build     nvcc of the eight kernel sources, all started together;
   reference tiny_test_config (dino='none') and tiny_flagship_config
             (dino='pointwise') agents on the card against the plain versions
             on the CPU (the plain versions are held against the JAX package by
-            tests/test_torch_port_*.py); each stage gets the CPU's input;
+            tests/test_torch_port_*.py); each stage gets the CPU's input; and
+            one score train step of each (loss, gradients, parameters);
   kernels   each kernel against its plain version on the card, at the shapes
             of the main paths, in float32 and in bf16 (discrete outputs exact);
+            ball query and FPS also at each grouped stage of the training
+            path's module forward, and ball query's edge cases;
   request   requests through PoseAgent / ScaleAgent at full width (B=64
             objects, 1024 points, K=50 candidates, 50 RK4 steps from T0=0.55,
             energies at t=1e-5, retain 0.4 with clustering): dino='none' once
@@ -25,6 +28,13 @@ Phases, one JSON line each:
             Launch counts are reset just before and read just after each
             request; the score feature and the candidates are recomputed with
             the plain versions on the card;
+  train     flagship score train steps as scripts/bench_train.py takes them
+            (B=64, N=1024, 256-px N(0,1) crops, repeat_num 20, Adam): 5 in its
+            float32 setting and 5 in its bf16 setting, each step's launch
+            counts exactly FPS 4, ball query 8, ViT attention 12, add+LN 12;
+            a kernel step against the same step with the plain versions; a
+            step replayed bit for bit; an energy step with ranking, a
+            ScaleAgent step, and a score step at TrainConfig.batch_size;
   timing    CUDA-event times of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the main
             paths' shapes, with the bound from this run's shapes and data;
@@ -37,6 +47,7 @@ package.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -98,17 +109,17 @@ def rel_err(a, b):
     return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
 
-def object_clouds(gen, device):
-    """B camera-frame clouds of N points on ellipsoid surfaces, 4-15 cm
+def object_clouds(gen, device, count=B):
+    """``count`` camera-frame clouds of N points on ellipsoid surfaces, 4-15 cm
     semi-axes, 0.5-1.2 m from the camera, 2 mm noise."""
     import torch
 
-    d = torch.randn(B, N, 3, generator=gen)
+    d = torch.randn(count, N, 3, generator=gen)
     d = d / d.norm(dim=-1, keepdim=True)
-    axes = torch.rand(B, 1, 3, generator=gen) * 0.11 + 0.04
-    center = torch.rand(B, 1, 3, generator=gen) * torch.tensor([0.6, 0.6, 0.7]) \
+    axes = torch.rand(count, 1, 3, generator=gen) * 0.11 + 0.04
+    center = torch.rand(count, 1, 3, generator=gen) * torch.tensor([0.6, 0.6, 0.7]) \
         + torch.tensor([-0.3, -0.3, 0.5])
-    pts = d * axes + center + torch.randn(B, N, 3, generator=gen) * 0.002
+    pts = d * axes + center + torch.randn(count, N, 3, generator=gen) * 0.002
     return pts.to(device)
 
 
@@ -125,6 +136,14 @@ def randomize(module, gen):
                 b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
             elif name.endswith("running_mean"):
                 b.copy_(torch.randn(b.shape, generator=gen) * 0.05)
+
+
+def no_dropout(cfg):
+    """The config with the Fus encoder's dropout and input jitter at 0."""
+    import dataclasses
+
+    pn2 = dataclasses.replace(cfg.model.pointnet2, dropout=0.0, input_jitter=0.0)
+    return cfg.replace(model=dataclasses.replace(cfg.model, pointnet2=pn2))
 
 
 def main():
@@ -151,7 +170,9 @@ def main():
     from genpose2_tpu_torch.models.fast_encoder import stage_arguments
     from genpose2_tpu_torch.models.scorenet import fast_score_weights
     from genpose2_tpu_torch.ops import _cuda
-    from genpose2_tpu_torch.ops.ball_query import ball_count, ball_count_plain
+    from genpose2_tpu_torch.models import pointnet2 as pointnet2_module
+    from genpose2_tpu_torch.ops.ball_query import (ball_count, ball_count_plain, ball_query,
+                                                   ball_query_plain)
     from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
     from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage, fused_sa_stage_plain
     from genpose2_tpu_torch.ops.grouping import gather_points
@@ -164,6 +185,7 @@ def main():
     from genpose2_tpu_torch.ops.relpe_attention import relpe_attention, relpe_attention_plain
     from genpose2_tpu_torch.ops.vit_attention import vit_attention_tm, vit_attention_tm_plain
     from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent
+    from genpose2_tpu_torch.training.optim import global_norm
 
     torch.set_grad_enabled(False)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -202,6 +224,10 @@ def main():
             backbone_dtype=dtype, score_dtype=dtype))
 
     gen = torch.Generator().manual_seed(SEED)
+
+    def to_card(batch):
+        return {k: (v.to(dev) if torch.is_tensor(v) else [t.to(dev) for t in v])
+                for k, v in batch.items()}
 
     def make_agents(config):
         """{dtype: (score, energy, scale, plain sampler)}, one set of random
@@ -259,8 +285,7 @@ def main():
                                           zip(l_card["dino_layers"], l_cpu))
                 tol["dino_layers"] = 1e-4  # float32 summation order through 2 blocks
                 batch["dino_layers"] = l_cpu
-            on_card = {k: (v.to(dev) if torch.is_tensor(v) else [t.to(dev) for t in v])
-                       for k, v in batch.items()}
+            on_card = to_card(batch)
             f_cpu, _ = cpu.extract_features(batch)
             f_card, _ = card.extract_features(on_card)
             p_cpu = cpu.sample_candidates(batch, repeat_num=8, T0=T0, num_steps=10,
@@ -272,10 +297,57 @@ def main():
             # the JAX package's float32 bounds: encoder (tests/test_models.py:446),
             # fused RK4 against the scan (tests/test_ode_fused.py:112)
             tol["feature"], tol["candidates"] = 2e-4, 5e-4
+            errs.update(train_step_card_vs_cpu(tiny, cpu, card, batch))
+            # loss: float32 summation order (cuBLAS against the CPU's); gradients:
+            # the CPU tests' bound against JAX, 5e-4 of the largest entry
+            # (tests/test_torch_port_train_step.py); parameters after both
+            # sides take the CPU's gradients: the same float32 clip, Adam and
+            # EMA operations, the CPU tests' 1e-6 of max(1, |p|)
+            tol.update(train_loss_rel=1e-4, train_grad_err_over_max=5e-4,
+                       train_param_err=1e-6, train_ema_err=1e-6)
             line[name] = {"max_abs_err": errs, "tolerance": tol}
             emit(dict(line, config=name))
-            for k in errs:
+            for k in tol:
                 assert errs[k] <= tol[k], f"{name} {k}: {errs[k]} > {tol[k]}"
+
+    def train_step_card_vs_cpu(tiny, cpu, card, batch):
+        """One score train step of the same weights, batch and explicit draws
+        on the card and on the CPU (dropout and jitter 0, the CPU's ViT
+        layers on both sides); then both sides update with the CPU's
+        gradients (Adam's first step is about lr * sign(g), which flips on
+        gradients near zero) and each with its own BatchNorm statistics."""
+        tcfg = no_dropout(tiny)
+        t_cpu = PoseAgent(tcfg, "score", device="cpu")
+        t_card = PoseAgent(tcfg, "score", device=dev)
+        t_cpu.model.load_state_dict(cpu.model.state_dict())
+        t_card.model.load_state_dict(cpu.model.state_dict())
+        Bt = batch["pts"].shape[0]
+        R = tcfg.train.repeat_num
+        tb = dict(batch, zero_mean_gt_pose=torch.randn(Bt, 9, generator=gen) * 0.5)
+        draws = {"t": torch.rand(R, Bt, 1, generator=gen) * (1 - card.sde.eps) + card.sde.eps,
+                 "z": torch.randn(R, Bt, 9, generator=gen)}
+        s_cpu, s_card = t_cpu.init_state(), t_card.init_state()
+        l_cpu, _, g_cpu, st_cpu = t_cpu.loss_and_grads(s_cpu, tb, draws=draws)
+        l_card, _, g_card, st_card = t_card.loss_and_grads(s_card, to_card(tb), draws=draws)
+        g_cpu = [torch.zeros_like(p) if g is None else g for p, g in zip(s_cpu.params.values(),
+                                                                         g_cpu.values())]
+        g_card = [torch.zeros_like(p) if g is None else g.cpu()
+                  for p, g in zip(s_cpu.params.values(), g_card.values())]
+        t_cpu.apply_gradients(s_cpu, l_cpu, g_cpu, st_cpu)
+        t_card.apply_gradients(s_card, l_card, [g.to(dev) for g in g_cpu], st_card)
+        gmax = max(float(g.abs().max()) for g in g_cpu)
+        l_card, l_cpu = float(l_card.detach()), float(l_cpu.detach())
+
+        def state_err(a, b):
+            return max(max_err(x.cpu(), y) / max(1.0, float(y.abs().max()))
+                       for x, y in zip(a.values(), b.values()))
+
+        return {"train_loss": [l_card, l_cpu],
+                "train_grad_norm": [float(global_norm(g_card)), float(global_norm(g_cpu))],
+                "train_loss_rel": abs(l_card - l_cpu) / abs(l_cpu),
+                "train_grad_err_over_max": max(max_err(a, b) for a, b in zip(g_card, g_cpu)) / gmax,
+                "train_param_err": state_err(s_card.params, s_cpu.params),
+                "train_ema_err": state_err(s_card.ema_params, s_cpu.ema_params)}
 
     reference()
 
@@ -355,8 +427,36 @@ def main():
                    .to(dev, torch.bfloat16) for _ in range(2)) \
         + tuple(torch.randn(vit_dim, generator=gen).to(dev) for _ in range(3))
 
+    # the training path's grouped stages: FPS on each stage's own points
+    # (N = 1024, 512, 256, 128), both scales' ball queries on its centroids
+    bq_stages, fps_stages = [], []
+    xyz_k = pts0
+    for npoint, radii, nsamples in zip(fus_cfg.npoints, fus_cfg.radii, fus_cfg.nsamples):
+        if npoint is None:
+            break
+        fps_stages.append((xyz_k, npoint))
+        new_k = gather_points(xyz_k, fps_plain(xyz_k, npoint)).contiguous()
+        bq_stages += [(xyz_k, new_k, r, ns) for r, ns in zip(radii, nsamples)]
+        xyz_k = new_k
+    bq_edges = {  # no hit at all; N not a multiple of 32; nsample above 32; M below a tile
+        "zero_hits": (pts0, (S0[:, :100] + 10.0).contiguous(), 0.02, 32),
+        "n1000": (pts0[:, :1000].contiguous(), S0[:, :300].contiguous(), 0.04, 32),
+        "nsample64": (pts0, S0.contiguous(), 0.05, 64),
+        "m20": (pts0, S0[:, :20].contiguous(), 0.02, 16),
+    }
+
     @phase("kernels")
     def kernels():
+        # ball query at the training path's eight stage shapes and the edge
+        # cases, FPS at the later stages' N; both exact
+        bq_mis, bq_hits = [], []
+        for xyz, nxs, r, ns in list(bq_stages) + list(bq_edges.values()):
+            k, p = ball_query(xyz, nxs, r, ns), ball_query_plain(xyz, nxs, r, ns)
+            bq_mis.append(int((k != p).sum()))
+            bq_hits.append(float(ball_count_plain(xyz, nxs, r).float().mean()))
+        fps_mis = [int((furthest_point_sample(x, n) != fps_plain(x, n)).sum())
+                   for x, n in fps_stages[1:]]
+        results["ball_query"] = {"max_abs_err": float(sum(bq_mis)), "tolerance": "exact"}
         # FPS and ball count (float32 only)
         idx_k = furthest_point_sample(pts0, 512)
         idx_p = fps_plain(pts0, 512)
@@ -368,8 +468,13 @@ def main():
         results["ball_count"] = {"max_abs_err": float(bc_mismatch), "tolerance": "exact"}
         line = {"phase": "kernels", "fps_index_mismatches": fps_mismatch,
                 "ball_count_mismatches": bc_mismatch, "sa": {}, "rk4": {}, "relpe": {},
-                "residual_ln": {}, "vit": {}}
-        ok = fps_mismatch == 0 and bc_mismatch == 0
+                "residual_ln": {}, "vit": {},
+                "ball_query": {"cases": [f"N{x.shape[1]}_M{c.shape[1]}_r{r}_S{ns}"
+                                         for x, c, r, ns in bq_stages] + list(bq_edges),
+                               "index_mismatches": bq_mis, "mean_hits": bq_hits},
+                "fps_train_stages": {"N": [x.shape[1] for x, _ in fps_stages[1:]],
+                                     "index_mismatches": fps_mis}}
+        ok = fps_mismatch == 0 and bc_mismatch == 0 and not any(bq_mis) and not any(fps_mis)
         for dtype, (s, _, _, _) in paths["none"].items():
             pcfg = s.cfg.model.pointnet2
             stages = sa_stage_inputs(s.model.pts_encoder, pts0, pcfg)
@@ -556,16 +661,227 @@ def main():
 
     requests()
 
+    # ------------------------------------------------------------------ train
+    per_train = []
+    TRAIN_STEPS, RANK_K = 5, 5
+
+    def train_config(setting):
+        """scripts/bench_train.py's settings: 'float32' is ModelConfig(dino=
+        'pointwise') (the backbone stays bf16 by default); 'bfloat16' also
+        runs the SA stack and the score dtype in bf16."""
+        if setting == "bfloat16":
+            return flagship_config("bfloat16")
+        return default_config().replace(model=ModelConfig(dino="pointwise"))
+
+    def train_batch(count=B):
+        """Clouds, ground-truth poses (a random rotation's two columns and a
+        few cm of translation), 256-px N(0, 1) crops and uniform pixels."""
+        pts = object_clouds(gen, dev, count)
+        q, _ = torch.linalg.qr(torch.randn(count, 3, 3, generator=gen))
+        gt = torch.cat([q[:, :, 0], q[:, :, 1], torch.randn(count, 3, generator=gen) * 0.05], -1)
+        return {"pts": pts, "zero_mean_gt_pose": gt.to(dev),
+                "roi_rgb": torch.randn(count, S, S, 3, generator=gen).to(dev),
+                "roi_xs": torch.randint(0, S, (count, N), generator=gen).to(dev),
+                "roi_ys": torch.randint(0, S, (count, N), generator=gen).to(dev)}
+
+    def train_counts(vit):
+        want = dict.fromkeys(_cuda.KERNELS, 0)
+        want.update(fps=4, ball_query=8)
+        if vit:
+            want.update(vit_attention=12, add_layernorm=12)
+        return want
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after; returns (result, ms on the host clock, counts)."""
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        return out, ms, {k: _cuda.launch_counts[k] for k in _cuda.KERNELS}
+
+    def clone_state(st):
+        return {"step": st.step, "ema_updates": st.ema_updates,
+                "count": st.opt_state["count"],
+                "tensors": [t.detach().clone() for t in state_tensors(st)]}
+
+    def state_tensors(st):
+        return [*st.params.values(), *st.buffers.values(), *st.ema_params.values(),
+                *st.opt_state["mu"], *st.opt_state["nu"]]
+
+    def restore_state(st, saved):
+        st.step, st.ema_updates = saved["step"], saved["ema_updates"]
+        st.opt_state["count"] = saved["count"]
+        with torch.no_grad():
+            for t, v in zip(state_tensors(st), saved["tensors"]):
+                t.copy_(v)
+
+    train_agents = {}
+
+    @phase("train")
+    def train():
+        ok = True
+        for setting in ("float32", "bfloat16"):
+            cfg = train_config(setting)
+            agent = PoseAgent(cfg, "score", device=dev)
+            randomize(agent.model, gen)
+            randomize(agent.provider.vit, gen)
+            state = agent.init_state()
+            train_agents[setting] = (agent, state)
+            start = clone_state(state)
+            g = torch.Generator(device=dev).manual_seed(SEED + 1)
+            steps = []
+            for _ in range(TRAIN_STEPS):
+                batch = train_batch()
+                (_, m), ms, counts = counted(lambda: agent.train_step(state, batch, g))
+                loss = float(m["loss"])
+                good = counts == train_counts(True) and math.isfinite(loss)
+                ok = ok and good
+                steps.append({"ms": ms, "loss": loss, "grad_norm": float(m["grad_norm"]),
+                              "lr": m["lr"], "launches": counts, "ok": good})
+                per_train.append(counts)
+            n_p, n_b = len(state.params), len(state.buffers)
+            now = state_tensors(state)
+            moved = [not torch.equal(a, b) for a, b in zip(now, start["tensors"])]
+            moved = {"params": sum(moved[:n_p]), "buffers": sum(moved[n_p:n_p + n_b]),
+                     "ema": sum(moved[n_p + n_b:2 * n_p + n_b]),
+                     "of": {"params": n_p, "buffers": n_b, "ema": n_p}}
+            # every BatchNorm statistic moves; a parameter stays only where its
+            # gradient is 0 on every step (the ImgEncoder's, behind the
+            # stop-gradient, and the one-token GroupAll block's query and key)
+            good = (moved["buffers"] == n_b and moved["params"] >= 0.9 * n_p
+                    and moved["ema"] >= 0.9 * n_p and state.step == TRAIN_STEPS)
+            ok = ok and good
+            warm = sorted(st_["ms"] for st_ in steps[1:])
+            emit({"phase": "train", "setting": setting, "ok": good and all(x["ok"] for x in steps),
+                  "batch": B, "repeat_num": cfg.train.repeat_num, "optimizer": cfg.train.optimizer,
+                  "steps": steps, "expected": train_counts(True), "moved": moved,
+                  "warm_step_ms_median": warm[len(warm) // 2],
+                  "samples_per_s": 1e3 * B / warm[len(warm) // 2]})
+
+        agent, state = train_agents["float32"]
+        batch = agent.with_image_features(train_batch())  # both runs take these ViT layers
+        # one step with the kernels against the same step with the plain
+        # versions, same state and generator seed; every ball query's indices
+        recorded = {"kernel": [], "plain": []}
+
+        def recording(fn, key):
+            def run(*a):
+                out = fn(*a)
+                recorded[key].append(out)
+                return out
+            return run
+
+        pointnet2_module.ball_query = recording(ball_query, "kernel")
+        pointnet2_module.ball_query_plain = recording(ball_query_plain, "plain")
+        try:
+            # loss_and_grads changes neither the model nor the state
+            l_k, _, g_k, _ = agent.loss_and_grads(state, batch,
+                                                  torch.Generator(dev).manual_seed(7))
+            l_p, _, g_p, _ = agent.loss_and_grads(state, batch,
+                                                  torch.Generator(dev).manual_seed(7), plain=True)
+        finally:
+            pointnet2_module.ball_query = ball_query
+            pointnet2_module.ball_query_plain = ball_query_plain
+        ks = [g for g in g_k.values() if g is not None]
+        ps = [g for g in g_p.values() if g is not None]
+        gmax = max(float(g.abs().max()) for g in ps)
+        idx_equal = (len(recorded["kernel"]) == len(recorded["plain"]) == 8 and
+                     all(torch.equal(a, b) for a, b in zip(recorded["kernel"], recorded["plain"])))
+        l_k, l_p = float(l_k.detach()), float(l_p.detach())
+        cmp = {"loss": [l_k, l_p], "loss_rel": abs(l_k - l_p) / abs(l_p),
+               "grad_err_over_max": max(max_err(a, b) for a, b in zip(ks, ps)) / gmax,
+               "ball_query_indices_equal": idx_equal,
+               "tolerance": {"loss_rel": 1e-5, "grad_err_over_max": 5e-4}}
+        # FPS and ball-query indices are exact, so both runs do the same
+        # float32 work; the CPU tests' bound stands in for summation order
+        good = idx_equal and cmp["loss_rel"] <= 1e-5 and cmp["grad_err_over_max"] <= 5e-4
+        ok = ok and good
+        emit({"phase": "train", "check": "kernel_vs_plain_step", "ok": good, **cmp})
+
+        # the same step twice from the same state and seed: bit-identical
+        saved = clone_state(state)
+        runs = []
+        for _ in range(2):
+            restore_state(state, saved)
+            _, m = agent.train_step(state, batch, torch.Generator(dev).manual_seed(9))
+            runs.append((m["loss"].clone(), [p.detach().clone() for p in state.params.values()]))
+        loss_same = bool(torch.equal(runs[0][0], runs[1][0]))
+        params_same = sum(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+        same = loss_same and params_same == len(runs[0][1])
+        ok = ok and same
+        emit({"phase": "train", "check": "replay", "ok": same, "loss": float(runs[0][0]),
+              "loss_identical": loss_same, "params_identical": params_same,
+              "of": len(runs[0][1])})
+
+        # energy agent with ranking candidates (second-order DSM); the batch
+        # carries its ViT layers, so the backbone does not run
+        cfg = train_config("float32")
+        e_agent = PoseAgent(cfg, "energy", device=dev)
+        randomize(e_agent.model, gen)
+        e_state = e_agent.init_state()
+        cand = torch.randn(B, RANK_K, 9, generator=gen) * 0.5
+        e_batch = dict(batch, candidate_poses=cand.to(dev),
+                       candidate_metrics=torch.rand(B, RANK_K, 2, generator=gen).to(dev))
+        (_, m), ms, counts = counted(
+            lambda: e_agent.train_step(e_state, e_batch, torch.Generator(dev).manual_seed(11)))
+        good = counts == train_counts(False) and math.isfinite(float(m["loss"]))
+        ok = ok and good
+        per_train.append(counts)
+        emit({"phase": "train", "check": "energy_with_ranking", "ok": good, "ms": ms,
+              "loss": float(m["loss"]), "ranking_loss": float(m["ranking_loss"]),
+              "launches": counts, "expected": train_counts(False)})
+
+        # ScaleAgent on the score encoder's eval feature, 64 noised axes each
+        sc = ScaleAgent(cfg, device=dev)
+        randomize(sc.model, gen)
+        sc_state = sc.init_state()
+        feat, _ = agent.extract_features(batch)
+        q, _ = torch.linalg.qr(torch.randn(B * cfg.train.scale_batch_size, 3, 3, generator=gen))
+        sc_batch = {"pts_feat": feat,
+                    "axes_training": q.reshape(B, cfg.train.scale_batch_size, 3, 3).to(dev),
+                    "gt_length": (torch.rand(B, 3, generator=gen) * 0.25 + 0.05).to(dev)}
+        (_, m), ms, _ = counted(lambda: sc.train_step(sc_state, sc_batch))
+        good = math.isfinite(float(m["loss"])) and sc_state.step == 1
+        ok = ok and good
+        emit({"phase": "train", "check": "scale", "ok": good, "ms": ms, "loss": float(m["loss"]),
+              "rows": B * cfg.train.scale_batch_size})
+
+        # one score step at TrainConfig.batch_size, with its peak memory
+        big = cfg.train.batch_size
+        big_batch = train_batch(big)
+        torch.cuda.reset_peak_memory_stats()
+        (_, m), ms, counts = counted(lambda: agent.train_step(state, big_batch,
+                                                              torch.Generator(dev).manual_seed(13)))
+        good = counts == train_counts(True) and math.isfinite(float(m["loss"]))
+        ok = ok and good
+        per_train.append(counts)
+        emit({"phase": "train", "check": "batch_size", "ok": good, "batch": big, "ms": ms,
+              "samples_per_s": 1e3 * big / ms, "loss": float(m["loss"]),
+              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "launches": counts})
+        if not ok:
+            raise AssertionError("a training check failed")
+
+    train()
+
     # ------------------------------------------------------------------ timing
     table = []
 
     @phase("timing")
     def timing():
+        per_stage = {}
         dtyped = ("fused_sa_stage", "fused_rk4", "relpe_attention", "vit_attention")
         launches = {}
         for req in per_request:
             for k, v in req["counts"].items():
                 key = f"{k}.bf16" if req["dtype"] == "bfloat16" and k in dtyped else k
+                launches[key] = launches.get(key, 0) + v
+        for counts in per_train:  # the training backbone is bf16 in both settings
+            for k, v in counts.items():
+                key = f"{k}.bf16" if k == "vit_attention" else k
                 launches[key] = launches.get(key, 0) + v
 
         def entry(name, source, replaces, ms, plain_ms, nbytes, ops, library_ms=None):
@@ -586,7 +902,25 @@ def main():
         entry("ball_count", csrc + "ball_count.cu",
               "genpose2_tpu/ops/ball_query_pallas.py:178", ms, pms,
               B * (N + 512) * 12 + B * 512 * 4, {"float32": 9 * B * 512 * N})
-        per_stage = {}
+        # ball query: the eight launches of one training step's encoder
+        # forward. Operations: 8 per distance test (3 subtractions, 3
+        # products, 2 sums), over the points each centroid scans before its
+        # nsample-th hit (all N when it has fewer hits), from this run's data
+        ks, ps, bs, nb, ops = [], [], [], 0, 0
+        for xyz, nxs, r, ns in bq_stages:
+            ks.append(cuda_ms(lambda: ball_query(xyz, nxs, r, ns), 20))
+            ps.append(cuda_ms(lambda: ball_query_plain(xyz, nxs, r, ns), 2))
+            Bn, Nn, Mn = xyz.shape[0], xyz.shape[1], nxs.shape[1]
+            idx = ball_query_plain(xyz, nxs, r, ns)
+            full = ball_count_plain(xyz, nxs, r) >= ns
+            scanned = torch.where(full, idx[..., ns - 1].long() + 1,
+                                  torch.full_like(full, Nn, dtype=torch.long))
+            nb_, ops_ = 12 * Bn * (Nn + Mn) + 4 * Bn * Mn * ns, 8 * int(scanned.sum())
+            bs.append(bound_ms(nb_, {"float32": ops_})[0])
+            nb, ops = nb + nb_, ops + ops_
+        per_stage["ball_query"] = {"kernel_ms": ks, "plain_ms": ps, "bound_ms": bs}
+        entry("ball_query", csrc + "ball_query.cu", "genpose2_tpu/ops/ball_query_pallas.py:139",
+              sum(ks), sum(ps), nb, {"float32": ops})
         for dtype, name in (("float32", "fused_sa_stage"), ("bfloat16", "fused_sa_stage.bf16")):
             stages = results[name]["stages"]
             ks, ps, nb, ops = [], [], 0, 0
@@ -690,33 +1024,43 @@ def main():
                              for r in per_request],
               "note": "ms of fused_sa_stage and relpe_attention entries: the four stage launches "
                       "of one encoder forward; residual_layernorm: its eight launches; "
-                      "launches: summed over the requests"})
+                      "ball_query: the eight launches of one training step; launches: summed "
+                      "over the requests and the counted train steps"})
 
     timing()
 
     @phase("profile")
     def profile():
-        """Device time by kernel name over one bf16 flagship request, and the
-        device's busy share against the unprofiled warm request time."""
+        """Device time by kernel name over one bf16 flagship request and one
+        float32-setting flagship train step, and the device's busy share
+        against the unprofiled warm time of the same work."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
 
-        raw, prior = new_request("pointwise", "bfloat16")
-        t0 = time.perf_counter()
-        serve("pointwise", "bfloat16", raw, prior)
-        torch.cuda.synchronize()
-        warm_ms = 1e3 * (time.perf_counter() - t0)
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            serve("pointwise", "bfloat16", raw, prior)
+        def profiled(name, fn):
+            t0 = time.perf_counter()
+            fn()
             torch.cuda.synchronize()
-        rows = [(ev.device_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        emit({"phase": "profile", "ok": True, "request": "pointwise bfloat16",
-              "device_ms": busy, "warm_request_ms": warm_ms, "busy_share": busy / warm_ms,
-              "top": [{"ms": t, "calls": c, "name": k[:120]} for t, c, k in rows[:25]]})
+            warm_ms = 1e3 * (time.perf_counter() - t0)
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            rows = [(ev.device_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
+            rows.sort(reverse=True)
+            busy = sum(r[0] for r in rows)
+            emit({"phase": "profile", "ok": True, "run": name, "device_ms": busy,
+                  "warm_ms": warm_ms, "busy_share": busy / warm_ms,
+                  "top": [{"ms": t, "calls": c, "name": k[:120]} for t, c, k in rows[:25]]})
+
+        raw, prior = new_request("pointwise", "bfloat16")
+        profiled("request pointwise bfloat16", lambda: serve("pointwise", "bfloat16", raw, prior))
+        if "float32" in train_agents:
+            agent, state = train_agents["float32"]
+            batch = train_batch()
+            g = torch.Generator(device=dev).manual_seed(SEED + 2)
+            profiled("train step float32 setting", lambda: agent.train_step(state, batch, g))
 
     profile()
 

@@ -37,6 +37,14 @@ class SDE:
             return 1.0 - torch.exp(2.0 * self._log_mean_coeff(t))
         raise NotImplementedError(f"sde mode {self.mode!r} is not ported yet (see ROADMAP.md)")
 
+    def marginal_mean(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Mean of p_t(x_t | x_0 = x)."""
+        if self.mode == "ve":
+            return x
+        if self.mode in ("vp", "subvp"):
+            return torch.exp(self._log_mean_coeff(t)) * x
+        raise NotImplementedError(f"sde mode {self.mode!r} is not ported yet (see ROADMAP.md)")
+
     def diffusion_coeff(self, t: torch.Tensor) -> torch.Tensor:
         """g(t)."""
         if self.mode == "ve":

@@ -33,7 +33,7 @@ from genpose2_tpu_torch.models.attention import (GatedAttentionFusion,
                                                  TransformerBlockWithRelativePE)
 from genpose2_tpu_torch.models.layers import fold_bn, linear_resize_points, mm
 from genpose2_tpu_torch.models.pointnet2 import (PointNet2ClsMSG, PointNet2ClsMSGFus,
-                                                 SetAbstractionMSG)
+                                                 SetAbstractionMSG, _inputs)
 from genpose2_tpu_torch.ops.ball_query import ball_count, ball_count_plain
 from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
 from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage, fused_sa_stage_plain
@@ -42,12 +42,6 @@ from genpose2_tpu_torch.ops.layernorm import (fast_residual_layernorm,
                                               fast_residual_layernorm_plain)
 from genpose2_tpu_torch.ops.ode_rk4 import compute_dtype_of
 from genpose2_tpu_torch.ops.relpe_attention import relpe_attention, relpe_attention_plain
-
-
-def _inputs(xyz, features, use_xyz: bool):
-    if features is not None and use_xyz:
-        return torch.cat([xyz, features], dim=-1)
-    return features if features is not None else xyz
 
 
 def stage_arguments(sa: SetAbstractionMSG, inp: torch.Tensor, nxs: torch.Tensor,

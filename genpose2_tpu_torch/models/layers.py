@@ -6,12 +6,20 @@ with no conversion: ``nn.Linear`` weights are (out, in), an MLP is an
 ``nn.Sequential`` of Linear and ReLU, and a SharedMLP layer is
 ``layer{i}.conv`` (a bias-free 1x1 conv, weight (out, in, 1, 1)) plus
 ``layer{i}.bn.bn`` (BatchNorm2d).
+
+The module (training) forwards follow flax semantics, not torch's:
+``batch_norm`` normalises with the biased batch variance E[x^2] - E[x]^2 and
+moves the running statistics as 0.9 * old + 0.1 * batch with that biased
+variance (``nn.BatchNorm2d`` uses the unbiased one for its running update),
+and ``dropout`` draws its mask from an explicit ``torch.Generator``, so a
+step can be replayed from a seed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from contextlib import contextmanager
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -52,9 +60,69 @@ class _ConvBN(nn.Module):
         self.bn = _BN(c_out)
 
 
+BN_MOMENTUM = 0.9  # flax BatchNorm(momentum=0.9), the JAX package's setting
+_COLLECTING: List[dict] = []  # the open batch_stats() collections, innermost last
+
+
+@contextmanager
+def batch_stats():
+    """Collect the batch statistics of every train-mode ``batch_norm`` run
+    inside the block: yields {BatchNorm module: (mean, biased variance)},
+    which ``update_running_stats`` moves into the running statistics (the
+    counterpart of flax's mutable ``batch_stats``)."""
+    stats: dict = {}
+    _COLLECTING.append(stats)
+    try:
+        yield stats
+    finally:
+        _COLLECTING.pop()
+
+
+def batch_norm(x: torch.Tensor, bn: nn.Module, train: bool) -> torch.Tensor:
+    """flax ``BatchNorm`` over the last axis, in float32, with a torch
+    BatchNorm module's parameters and running statistics.
+
+    In train mode it normalises with the statistics of this batch (over every
+    other axis; variance E[x^2] - E[x]^2, biased, clipped at 0) and hands
+    them to the innermost open ``batch_stats()`` collection, if any; the
+    module itself is not changed. In eval mode it uses the running
+    statistics."""
+    x = x.float()
+    if train:
+        dims = tuple(range(x.ndim - 1))
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        if _COLLECTING:
+            _COLLECTING[-1][bn] = (mean.detach(), var.detach())
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+
+
+@torch.no_grad()
+def update_running_stats(stats: dict) -> None:
+    """Move each BatchNorm of a ``batch_stats()`` collection to
+    0.9 * running + 0.1 * batch."""
+    for bn, batch in stats.items():
+        for buf, b in zip((bn.running_mean, bn.running_var), batch):
+            buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * b)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """flax ``Dropout``: in train mode keep each entry with probability
+    1 - rate (a uniform draw from ``generator`` below 1 - rate) and scale it
+    by 1 / (1 - rate); identity in eval mode or at rate 0."""
+    if not train or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class SharedMLP(nn.Module):
-    """1x1 conv + BatchNorm + ReLU layers over channels-last rows. The port
-    runs them only in eval form, through ``folded()``."""
+    """1x1 conv + BatchNorm + ReLU layers over channels-last rows. Serving
+    runs them in eval form, through ``folded()``; training through
+    ``forward``."""
 
     def __init__(self, widths: Sequence[int]):
         super().__init__()
@@ -67,6 +135,17 @@ class SharedMLP(nn.Module):
         lay = getattr(self, f"layer{i}")
         W = lay.conv.weight.reshape(lay.conv.out_channels, lay.conv.in_channels).t()
         return (W,) + fold_bn(lay.bn.bn)
+
+    def forward(self, x: torch.Tensor, train: bool, dtype: torch.dtype = torch.float32,
+                start: int = 0) -> torch.Tensor:
+        """flax ``SharedMLP(dtype)`` over layers ``start``..: each a bias-free
+        Dense in ``dtype`` (the result in ``dtype``), then float32 BatchNorm
+        and ReLU. x (..., C_in) -> (..., C_out) float32."""
+        for i in range(start, self.num_layers):
+            lay = getattr(self, f"layer{i}")
+            W = lay.conv.weight[:, :, 0, 0].t()
+            x = torch.relu(batch_norm(x.to(dtype) @ W.to(dtype), lay.bn.bn, train))
+        return x
 
 
 def mm(a: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:

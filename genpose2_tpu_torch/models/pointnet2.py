@@ -1,8 +1,11 @@
-"""PointNet++ MSG classification encoder, as parameter holders (port of
-genpose2_tpu/models/pointnet2.py:SetAbstractionMSG / PointNet2ClsMSG).
+"""PointNet++ MSG classification encoders (port of
+genpose2_tpu/models/pointnet2.py:SetAbstractionMSG / PointNet2ClsMSG /
+PointNet2ClsMSGFus).
 
-Their eval forward is the fast path, models/fast_encoder.py:fast_cls_forward.
-The module (training) forward is not ported yet (see ROADMAP.md).
+``forward`` is the module form that training runs: FPS and ball query per
+stage (the FPS and ball-query kernels on the card), train-mode BatchNorms,
+and for the Fus encoder input jitter and dropout drawn from the step's
+generator. The eval forward is the fast path, models/fast_encoder.py.
 
 State dict layout (reference): ``SA_modules.{k}.mlps.{s}.layer{i}.conv`` and
 ``.bn.bn``. A grouped stage's layer 0 takes 3 + C_in channels (xyz first) and
@@ -14,13 +17,25 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import torch
 from torch import nn
 
 from genpose2_tpu_torch.config import PointNet2Config
 from genpose2_tpu_torch.models.attention import (EfficientRelativePositionalEncoding,
                                                  GatedAttentionFusion,
                                                  TransformerBlockWithRelativePE)
-from genpose2_tpu_torch.models.layers import SharedMLP
+from genpose2_tpu_torch.models.layers import (SharedMLP, batch_norm, dropout,
+                                              linear_resize_points)
+from genpose2_tpu_torch.ops.ball_query import ball_query, ball_query_plain
+from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
+from genpose2_tpu_torch.ops.grouping import gather_points, group_points
+from genpose2_tpu_torch.ops.ode_rk4 import compute_dtype_of
+
+
+def _inputs(xyz, features, use_xyz: bool):
+    if features is not None and use_xyz:
+        return torch.cat([xyz, features], dim=-1)
+    return features if features is not None else xyz
 
 
 class SetAbstractionMSG(nn.Module):
@@ -28,9 +43,42 @@ class SetAbstractionMSG(nn.Module):
                  nsamples: Sequence, mlps: Sequence[Sequence[int]], use_xyz: bool = True):
         super().__init__()
         self.npoint, self.radii, self.nsamples = npoint, tuple(radii), tuple(nsamples)
+        self.use_xyz = use_xyz
         c_in = in_channels + (3 if use_xyz or in_channels == 0 else 0)
         self.mlps = nn.ModuleList(SharedMLP((c_in,) + tuple(w)) for w in mlps)
         self.out_channels = sum(w[-1] for w in mlps)
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], train: bool,
+                dtype: torch.dtype = torch.float32, plain: bool = False):
+        """(xyz (B, N, 3), features (B, N, C) | None) -> (new_xyz (B, npoint, 3)
+        | None, (B, npoint | 1, sum C_out) float32).
+
+        A grouped stage runs FPS on this stage's points, projects every point
+        once at the first hidden width (float32, as the JAX module does in
+        every setting), gathers the projections of each centroid's ball and
+        subtracts the centroid's own (``center @ W[:3]``), then float32 BN +
+        ReLU, the rest of the SharedMLP in ``dtype`` and a max over slots
+        (``amax``: ties share the gradient, as JAX's max does). ``plain``
+        runs the plain versions of the FPS and ball-query kernels."""
+        if self.npoint is None:  # GroupAll: one centroid over every point, float32
+            grouped = _inputs(xyz, features, self.use_xyz)
+            return None, torch.cat([mlp(grouped, train).amax(dim=1, keepdim=True)
+                                    for mlp in self.mlps], dim=-1)
+        xyz = xyz.float().contiguous()
+        idx = (fps_plain if plain else furthest_point_sample)(xyz, self.npoint)
+        new_xyz = gather_points(xyz, idx)
+        inp = _inputs(xyz, features, self.use_xyz)
+        outs = []
+        for mlp, radius, nsample in zip(self.mlps, self.radii, self.nsamples):
+            lay0 = mlp.layer0
+            kernel = lay0.conv.weight[:, :, 0, 0].t()  # (3 + C, h1)
+            g_idx = (ball_query_plain if plain else ball_query)(xyz, new_xyz, radius, nsample)
+            grouped = group_points(inp.float() @ kernel, g_idx)  # (B, npoint, S, h1)
+            if self.use_xyz:
+                grouped = grouped - (new_xyz @ kernel[:3])[:, :, None, :]
+            pre = torch.relu(batch_norm(grouped, lay0.bn.bn, train))
+            outs.append(mlp(pre, train, dtype, start=1).amax(dim=2))
+        return new_xyz, torch.cat(outs, dim=-1)
 
 
 class PointNet2ClsMSG(nn.Module):
@@ -47,6 +95,16 @@ class PointNet2ClsMSG(nn.Module):
             in_channels = sa.out_channels
         self.SA_modules = nn.ModuleList(mods)
         self.out_channels = in_channels
+
+    def forward(self, pointcloud: torch.Tensor, train: bool,
+                generator: Optional[torch.Generator] = None, plain: bool = False):
+        """pointcloud (B, N, 3 + C) -> (B, C_final) float32."""
+        dt = compute_dtype_of(self.cfg.compute_dtype)
+        xyz = pointcloud[..., :3]
+        features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
+        for sa in self.SA_modules:
+            xyz, features = sa(xyz, features, train, dt, plain)
+        return features.squeeze(1)
 
 
 class PointNet2ClsMSGFus(PointNet2ClsMSG):
@@ -70,3 +128,30 @@ class PointNet2ClsMSGFus(PointNet2ClsMSG):
             TransformerBlockWithRelativePE(w, cfg.num_heads) for w in widths)
         self.feature_fusions = nn.ModuleList(
             GatedAttentionFusion(w, dino_dim) for w in widths[:-1])
+
+    def forward(self, pointcloud: torch.Tensor, train: bool,
+                generator: Optional[torch.Generator] = None, plain: bool = False):
+        """pointcloud (B, N, 3 + dino_dim) -> (B, C_final) float32. In train
+        mode the whole input (DINO channels too) gets N(0, 1) * input_jitter
+        noise and each gated fusion's output dropout, both from
+        ``generator``; the gated fusions run in the compute dtype, the rel-PE
+        blocks in float32."""
+        cfg = self.cfg
+        dt = compute_dtype_of(cfg.compute_dtype)
+        if train and cfg.input_jitter:
+            noise = torch.randn(pointcloud.shape, generator=generator, device=pointcloud.device)
+            pointcloud = pointcloud + noise * cfg.input_jitter
+        xyz = pointcloud[..., :3]
+        features = pointcloud[..., 3:]
+        downsampled = features
+        for k, sa in enumerate(self.SA_modules):
+            if k > 0:
+                if downsampled.shape[1] != features.shape[1]:
+                    downsampled = linear_resize_points(downsampled, features.shape[1])
+                features = self.feature_fusions[k - 1](features, downsampled, train, dt)
+                features = dropout(features, cfg.dropout, generator, train)
+            new_xyz, features = sa(xyz, features, train, dt, plain)
+            bias = None if new_xyz is None else self.relative_pos_encoders[str(k)](new_xyz)
+            features = self.transformer_blocks[k](features, bias, train, cfg.dropout, generator)
+            xyz = new_xyz
+        return features.squeeze(1)

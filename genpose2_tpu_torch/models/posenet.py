@@ -63,17 +63,29 @@ class GFObjectPose(nn.Module):
         return torch.gather(fused_patches, 1,
                             pos[..., None].expand(-1, -1, fused_patches.shape[-1]))
 
-    @torch.no_grad()
     def extract_pts_feature(self, pts, plain: bool = False,
                             dino_layers: Optional[Sequence[torch.Tensor]] = None,
-                            roi_xs=None, roi_ys=None):
+                            roi_xs=None, roi_ys=None, train: bool = False,
+                            generator: Optional[torch.Generator] = None):
         """pts (B, N, 3) (+ the tapped ViT layers and each point's pixel with
-        dino='pointwise') -> (B, C_final) through the fast encoder."""
-        if self.cfg.dino == "none":
-            return fast_cls_forward(self.pts_encoder, pts, self.cfg.pointnet2, plain=plain)
-        rgb = self.pointwise_rgb_feat(self.fuse_dino_layers(dino_layers), roi_xs, roi_ys)
-        inp = torch.cat([pts.float(), rgb], dim=-1)
-        return fast_fus_forward(self.pts_encoder, inp, self.cfg.pointnet2, plain=plain)
+        dino='pointwise') -> (B, C_final).
+
+        Eval: the fast encoder, without gradients. ``train``: the encoder's
+        module forward with autograd, its noise and dropout drawn from
+        ``generator``; the per-point DINO feature is computed without
+        gradients (the JAX package's stop_gradient), so the ImgEncoder gets
+        none. ``plain`` runs the plain versions of the kernels."""
+        if self.cfg.dino == "pointwise":
+            with torch.no_grad():
+                rgb = self.pointwise_rgb_feat(self.fuse_dino_layers(dino_layers), roi_xs, roi_ys)
+            inp = torch.cat([pts.float(), rgb], dim=-1)
+        else:
+            inp = pts.float()
+        if train:
+            return self.pts_encoder(inp, True, generator, plain)
+        fast = fast_fus_forward if self.cfg.dino == "pointwise" else fast_cls_forward
+        with torch.no_grad():
+            return fast(self.pts_encoder, inp, self.cfg.pointnet2, plain=plain)
 
     def score(self, pts_feat, sampled_pose, t):
         assert self.agent_type == "score"
@@ -82,3 +94,12 @@ class GFObjectPose(nn.Module):
     def energy(self, pts_feat, sampled_pose, t, decoupled_rt: bool = True):
         assert self.agent_type == "energy"
         return self.pose_score_net(pts_feat, sampled_pose, t, decoupled_rt)
+
+    def energy_score(self, pts_feat, sampled_pose, t):
+        """The energy net's score, d sum(E(p, decoupled_rt=False)) / dp, kept
+        differentiable (create_graph) for the DSM loss that trains it
+        (genpose2_tpu/training/agent.py:464-475)."""
+        with torch.enable_grad():
+            p = sampled_pose.detach().requires_grad_(True)
+            e = self.energy(pts_feat, p, t, decoupled_rt=False).sum()
+            return torch.autograd.grad(e, p, create_graph=True)[0]

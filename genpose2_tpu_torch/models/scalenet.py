@@ -24,3 +24,9 @@ class ScaleNet(nn.Module):
         """pts_feat (B, F), axes (B, 3, 3) -> lengths (B, 3)."""
         axes_feat = self.axes_encoder(encode_axes(axes, self.embedding_dim // 18))
         return self.fusion_tail_length(torch.cat([pts_feat, axes_feat], dim=-1))
+
+
+def scale_loss(pred_len: torch.Tensor, gt_len: torch.Tensor) -> torch.Tensor:
+    """Mean squared error of the side lengths, times 1e4 (port of
+    genpose2_tpu/models/scalenet.py:scale_loss)."""
+    return torch.mean((pred_len - gt_len) ** 2) * 10000.0

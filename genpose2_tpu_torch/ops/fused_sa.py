@@ -7,7 +7,7 @@ over slots; the scales' outputs are concatenated.
 ``fused_sa_stage`` launches the CUDA kernel (``csrc/fused_sa.cu``) on CUDA
 tensors and runs ``fused_sa_stage_plain`` on CPU tensors. The plain version is
 the JAX package's ``fused_group_mlp_pool_reference`` applied per scale to the
-indices of ``ball_query``, with the kernel's operand rounding: the input of
+indices of ``ball_query_plain``, with the kernel's operand rounding: the input of
 each product is rounded to the weights' dtype and the product is taken in
 float32, as ``jnp.dot(h.astype(W.dtype), W, preferred_element_type=f32)``.
 """
@@ -20,7 +20,7 @@ from typing import Sequence
 import torch
 
 from genpose2_tpu_torch.ops import _cuda
-from genpose2_tpu_torch.ops.ball_query import ball_query, radius_sq
+from genpose2_tpu_torch.ops.ball_query import ball_query_plain, radius_sq
 from genpose2_tpu_torch.ops.grouping import group_points
 
 _MAX_SCALES = 4  # csrc/fused_sa.cu kMaxScales
@@ -45,7 +45,7 @@ def fused_sa_stage_plain(xyz, new_xyz, projs, center_projs, affines_list, weight
                          radii: Sequence[float], nsamples: Sequence[int]) -> torch.Tensor:
     outs = []
     for s in range(len(radii)):
-        idx = ball_query(xyz, new_xyz, radii[s], nsamples[s])
+        idx = ball_query_plain(xyz, new_xyz, radii[s], nsamples[s])
         outs.append(group_mlp_pool(projs[s], idx, center_projs[s], affines_list[s],
                                    weights_list[s]))
     return torch.cat(outs, dim=-1)

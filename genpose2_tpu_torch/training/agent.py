@@ -1,7 +1,15 @@
-"""Inference surface of the agents (port of genpose2_tpu/training/agent.py:
-PoseAgent.with_image_features / extract_features / sample_candidates /
-get_energy and ScaleAgent.predict). Training is not ported yet (see
-ROADMAP.md).
+"""The agents (port of genpose2_tpu/training/agent.py): the inference surface
+(PoseAgent.with_image_features / extract_features / sample_candidates /
+get_energy, ScaleAgent.predict) and training (``init_state``,
+``train_step`` / ``train_steps``).
+
+A training step follows the JAX package's ``train_step``: the frozen
+backbone's features without gradients, the encoder's module forward in train
+mode (FPS and ball-query kernels on the card), the repeat_num-draw DSM loss
+(plus the ranking loss when an energy batch carries candidates), gradients
+by autograd, the global-norm clip and Adam or SGD step, the EMA update. A
+step whose loss is not finite changes nothing but the step counter: no
+parameter, optimizer state, BatchNorm statistic or EMA entry.
 
 Each agent owns its network (``.model``) and, with dino='pointwise', its
 frozen backbone (``.provider.vit``) on its device; weights come in through
@@ -13,24 +21,83 @@ without a card and without a device the agents raise.
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from genpose2_tpu_torch.config import Config
 from genpose2_tpu_torch.device import resolve_device
 from genpose2_tpu_torch.diffusion import init_sde, ode_sampler
+from genpose2_tpu_torch.diffusion.losses import dsm_draws, dsm_loss
+from genpose2_tpu_torch.models.layers import batch_stats, update_running_stats
 from genpose2_tpu_torch.models.posenet import GFObjectPose
 from genpose2_tpu_torch.models.provider import ImageFeatureProvider
-from genpose2_tpu_torch.models.scalenet import ScaleNet
+from genpose2_tpu_torch.models.scalenet import ScaleNet, scale_loss
 from genpose2_tpu_torch.models.scorenet import fast_score_weights
 from genpose2_tpu_torch.ops.ode_rk4 import fast_score
+from genpose2_tpu_torch.training.ema import ema_init, ema_update
+from genpose2_tpu_torch.training.optim import ClippedOptimizer, global_norm, make_lr_schedule
+from genpose2_tpu_torch.training.ranking import ranking_loss, sort_results
+
+RANK_T = (1e-5, 1e-4)  # the ranking energies' diffusion time range (agent.py:485)
+_RUNNING = ("running_mean", "running_var")
 
 
-class PoseAgent:
-    """A score or energy GFObjectPose, in eval mode, on one device."""
+@dataclass
+class TrainState:
+    """What a training step advances. ``params`` and ``buffers`` are the
+    model's own tensors (trainable parameters, BatchNorm running statistics)
+    by state-dict name, updated in place; ``opt_state`` the optimizer's;
+    ``ema_params`` a copy of ``params`` moved by the EMA, ``ema_updates``
+    its update count."""
 
-    def __init__(self, cfg: Config, agent_type: Optional[str] = None, device=None):
+    step: int
+    params: Dict[str, torch.Tensor]
+    buffers: Dict[str, torch.Tensor]
+    opt_state: Dict
+    ema_params: Dict[str, torch.Tensor]
+    ema_updates: float = 0.0
+
+
+class _Trainable:
+    """Train state and update shared by the agents: ``model``, ``optimizer``
+    and ``cfg`` are the agent's."""
+
+    def init_state(self) -> TrainState:
+        """A train state over the model's current weights."""
+        params = {k: p for k, p in self.model.named_parameters() if p.requires_grad}
+        buffers = {k: b for k, b in self.model.named_buffers() if k.endswith(_RUNNING)}
+        return TrainState(step=0, params=params, buffers=buffers,
+                          opt_state=self.optimizer.init(list(params.values())),
+                          ema_params=ema_init(params))
+
+    def apply_gradients(self, state: TrainState, loss: torch.Tensor,
+                        grads: Sequence[Optional[torch.Tensor]], bn_stats: dict) -> torch.Tensor:
+        """The second half of a step: the NaN guard, the optimizer step, the
+        batch's BatchNorm statistics ``bn_stats`` (from ``loss_and_grads``)
+        and the EMA, then step + 1. ``grads`` follow ``state.params``; a
+        parameter without a gradient (the ImgEncoder's, behind the
+        stop-gradient) has a zero one, as in JAX. Returns the gradients'
+        global norm."""
+        params = list(state.params.values())
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        norm = global_norm(grads)
+        if bool(torch.isfinite(loss)):
+            update_running_stats(bn_stats)
+            self.optimizer.step(params, grads, state.opt_state, norm)
+            state.ema_updates = ema_update(state.ema_params, state.params, state.ema_updates,
+                                           self.cfg.train.ema_rate)
+        state.step += 1
+        return norm
+
+
+class PoseAgent(_Trainable):
+    """A score or energy GFObjectPose on one device; in eval mode except
+    inside a training step."""
+
+    def __init__(self, cfg: Config, agent_type: Optional[str] = None, device=None,
+                 steps_per_epoch: int = 1000):
         self.cfg = cfg
         self.agent_type = agent_type or cfg.train.agent_type
         self.device = resolve_device(device)
@@ -42,6 +109,108 @@ class PoseAgent:
         if cfg.model.dino != "none" and cfg.model.backbone != "none":
             self.provider = ImageFeatureProvider(cfg.model)
             self.provider.vit.to(self.device).eval()
+        self.lr_schedule = make_lr_schedule(cfg, steps_per_epoch)
+        self.optimizer = ClippedOptimizer(cfg.train.optimizer, self.lr_schedule,
+                                          cfg.train.grad_clip)
+
+    def train_step(self, state: TrainState, batch: dict,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[dict] = None):
+        """One optimization step; returns (state, metrics) with metrics
+        ``loss``, ``score_loss``, ``ranking_loss`` (energy batches with
+        candidates), ``lr`` and ``grad_norm``. Arguments as
+        ``loss_and_grads``."""
+        loss, metrics, grads, bn_stats = self.loss_and_grads(state, batch, generator, draws)
+        lr = self.lr_schedule(state.step)
+        metrics.update(lr=lr, grad_norm=self.apply_gradients(state, loss, grads.values(),
+                                                             bn_stats))
+        return state, metrics
+
+    def loss_and_grads(self, state: TrainState, batch: dict,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[dict] = None, plain: bool = False):
+        """The training loss of a batch, its gradients and its BatchNorm
+        statistics: (loss, metrics, {name: gradient or None} over
+        ``state.params``, bn_stats for ``apply_gradients``). The model and
+        the state are not changed.
+
+        batch: ``pts`` (B, N, 3) the camera-frame cloud, ``zero_mean_gt_pose``
+        (B, D), with dino='pointwise' ``roi_xs``/``roi_ys`` and ``dino_layers``
+        or ``roi_rgb``; energy batches may add ``candidate_poses`` (B, K, D)
+        and ``candidate_metrics`` (B, K, 2). Input jitter, dropout masks and
+        the loss's draws come from ``generator`` (on the agent's device) in
+        that order, unless ``draws`` gives the DSM draws ``t`` (R, B, 1) and
+        ``z`` (R, B, D) and the ranking times ``rank_t`` (B * K, 1). ``plain``
+        runs the plain versions of the kernels."""
+        dev = self.device
+        draws = draws or {}
+        batch = self.with_image_features(batch, plain)
+        gt = batch["zero_mean_gt_pose"].to(dev, torch.float32)
+        B, D = gt.shape
+        self.model.train()
+        try:
+            with torch.enable_grad(), batch_stats() as bn_stats:
+                feat = self._features(batch, train=True, generator=generator, plain=plain)
+                if "t" in draws:
+                    t, z = draws["t"].to(dev), draws["z"].to(dev)
+                else:
+                    t, z = dsm_draws(B, D, self.sde, self.cfg.train.repeat_num, generator, dev)
+                R = t.shape[0]
+                feat_rep = feat[None].expand(R, *feat.shape).reshape(R * B, -1)
+                if self.agent_type == "score":
+                    def score_fn(x, tt):
+                        return self.model.score(feat_rep, x, tt)
+                else:
+                    def score_fn(x, tt):
+                        return self.model.energy_score(feat_rep, x, tt)
+                loss = dsm_loss(score_fn, gt, self.sde, t, z)
+                metrics = {"score_loss": loss.detach()}
+                if self.agent_type == "energy" and "candidate_poses" in batch:
+                    r_loss = self._ranking_loss(batch, feat, draws.get("rank_t"), generator)
+                    metrics["ranking_loss"] = r_loss.detach()
+                    loss = loss + r_loss
+                grads = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True)
+        finally:
+            self.model.eval()
+        metrics["loss"] = loss.detach()
+        return loss, metrics, dict(zip(state.params, grads)), bn_stats
+
+    def train_steps(self, state: TrainState, batches: Sequence[dict],
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[Sequence[dict]] = None):
+        """One ``train_step`` per batch; returns (state, list of metrics)."""
+        metrics: List[dict] = []
+        for i, batch in enumerate(batches):
+            state, m = self.train_step(state, batch, generator,
+                                       None if draws is None else draws[i])
+            metrics.append(m)
+        return state, metrics
+
+    def _ranking_loss(self, batch: dict, feat: torch.Tensor, rank_t, generator):
+        """The candidates' decoupled energies at t ~ U(1e-5, 1e-4), sorted
+        by their ground-truth errors, through the pairwise ranking loss."""
+        cand = batch["candidate_poses"].to(self.device, torch.float32)
+        B, K, D = cand.shape
+        if rank_t is None:
+            lo, hi = RANK_T
+            rank_t = torch.rand((B * K, 1), generator=generator, device=self.device)
+            rank_t = rank_t * (hi - lo) + lo
+        feat_rep = feat[:, None].expand(B, K, feat.shape[-1]).reshape(B * K, -1)
+        energy = self.model.energy(feat_rep, cand.reshape(B * K, D), rank_t.to(self.device),
+                                   True).reshape(B, K, 2)
+        return ranking_loss(sort_results(energy, batch["candidate_metrics"].to(self.device)))
+
+    def _features(self, batch: dict, train: bool = False,
+                  generator: Optional[torch.Generator] = None, plain: bool = False):
+        """The point feature of a batch whose image features are attached."""
+        pts = batch["pts"].to(self.device, torch.float32)
+        if self.cfg.model.dino == "none":
+            return self.model.extract_pts_feature(pts, plain=plain, train=train,
+                                                  generator=generator)
+        layers = [t.to(self.device, torch.float32) for t in batch["dino_layers"]]
+        return self.model.extract_pts_feature(pts, plain, layers, batch["roi_xs"].to(self.device),
+                                              batch["roi_ys"].to(self.device), train=train,
+                                              generator=generator)
 
     def with_image_features(self, batch: dict, plain: bool = False) -> dict:
         """The batch with ``dino_layers`` computed from ``roi_rgb`` (B, S, S, 3)
@@ -57,14 +226,7 @@ class PoseAgent:
         With dino='pointwise' the batch also carries ``roi_xs``/``roi_ys``
         (B, N) and ``dino_layers`` or ``roi_rgb`` (see with_image_features).
         ``plain`` runs the plain versions of the kernels."""
-        pts = batch["pts"].to(self.device, torch.float32)
-        if self.cfg.model.dino == "none":
-            return self.model.extract_pts_feature(pts, plain=plain), None
-        batch = self.with_image_features(batch, plain)
-        layers = [t.to(self.device, torch.float32) for t in batch["dino_layers"]]
-        feat = self.model.extract_pts_feature(pts, plain, layers, batch["roi_xs"].to(self.device),
-                                              batch["roi_ys"].to(self.device))
-        return feat, None
+        return self._features(self.with_image_features(batch, plain), plain=plain), None
 
     @torch.no_grad()
     def sample_candidates(self, batch: dict, repeat_num: int = 50, T0: float = 1.0,
@@ -122,13 +284,43 @@ class PoseAgent:
         return energy.reshape(B, K, 2)
 
 
-class ScaleAgent:
+class ScaleAgent(_Trainable):
     """ScaleNet on the frozen score-encoder feature, on one device."""
 
-    def __init__(self, cfg: Config, pts_dim: int = 1024, device=None):
+    def __init__(self, cfg: Config, pts_dim: int = 1024, device=None,
+                 steps_per_epoch: int = 1000):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = ScaleNet(cfg.model.scale_embedding, pts_dim).to(self.device).eval()
+        self.lr_schedule = make_lr_schedule(cfg, steps_per_epoch)
+        self.optimizer = ClippedOptimizer("adam", self.lr_schedule, cfg.train.grad_clip)
+
+    def train_step(self, state: TrainState, batch: dict):
+        """batch: ``pts_feat`` (B, F) frozen score-encoder features,
+        ``axes_training`` (B, S, 3, 3) noised ground-truth axes, ``gt_length``
+        (B, 3). Returns (state, {'loss'})."""
+        loss, grads = self.loss_and_grads(state, batch)
+        self.apply_gradients(state, loss, grads.values(), {})  # ScaleNet has no BatchNorm
+        return state, {"loss": loss.detach()}
+
+    def loss_and_grads(self, state: TrainState, batch: dict):
+        """The scale loss of a batch (see ``train_step``) and its gradients
+        {name: gradient} over ``state.params``."""
+        dev = self.device
+        axes = batch["axes_training"].to(dev, torch.float32)
+        B, S = axes.shape[:2]
+        feat = batch["pts_feat"].to(dev, torch.float32)
+        gt = batch["gt_length"].to(dev, torch.float32)
+        self.model.train()
+        try:
+            with torch.enable_grad():
+                pred = self.model(feat[:, None].expand(B, S, feat.shape[-1]).reshape(B * S, -1),
+                                  axes.reshape(B * S, 3, 3))
+                loss = scale_loss(pred, gt[:, None].expand(B, S, 3).reshape(B * S, 3))
+                grads = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True)
+        finally:
+            self.model.eval()
+        return loss, dict(zip(state.params, grads))
 
     @torch.no_grad()
     def predict(self, pts_feat: torch.Tensor, axes: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,32 @@
-"""Energy ranking of candidates (port of genpose2_tpu/training/ranking.py:
-sort_poses_by_energy)."""
+"""Energy ranking of candidates (port of genpose2_tpu/training/ranking.py):
+the serving path's ``sort_poses_by_energy`` and the energy net's ranking
+loss over candidates sorted by their ground-truth error."""
 
 from __future__ import annotations
 
 import torch
+
+
+def sort_results(energy: torch.Tensor, metrics: torch.Tensor) -> torch.Tensor:
+    """Energies reordered so that index 0 is the candidate with the lowest
+    error: rotation energies by rotation error, translation energies by
+    translation error (stable, as ``jnp.argsort``).
+
+    energy, metrics (B, K, 2) -> (B, K, 2)."""
+    order = torch.argsort(metrics, dim=1, stable=True)
+    return torch.gather(energy, 1, order)
+
+
+def ranking_loss(energy: torch.Tensor) -> torch.Tensor:
+    """Pairwise normalised-margin loss over candidates sorted best first: for
+    each pair i < j, 1 + (E_j - E_i) / (|E_i - E_j| + 1e-5), averaged over
+    objects, pairs and the two energies. energy (B, K, 2) -> scalar."""
+    K = energy.shape[1]
+    Ei = energy[:, :, None, :]
+    Ej = energy[:, None, :, :]
+    diff = 1.0 + (Ej - Ei) / (torch.abs(Ei - Ej) + 1e-5)
+    iu, ju = torch.triu_indices(K, K, offset=1, device=energy.device)
+    return torch.mean(diff[:, iu, ju, :])
 
 
 def sort_poses_by_energy(poses: torch.Tensor, energy: torch.Tensor):

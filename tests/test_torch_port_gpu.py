@@ -19,7 +19,8 @@ from genpose2_tpu_torch.diffusion.sde import init_sde
 from genpose2_tpu_torch.models.attention import EfficientRelativePositionalEncoding
 from genpose2_tpu_torch.models.scorenet import PoseScoreNet, fast_score_weights
 from genpose2_tpu_torch.ops import _cuda
-from genpose2_tpu_torch.ops.ball_query import ball_count, ball_count_plain
+from genpose2_tpu_torch.ops.ball_query import (ball_count, ball_count_plain, ball_query,
+                                               ball_query_plain)
 from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
 from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage, fused_sa_stage_plain
 from genpose2_tpu_torch.ops.layernorm import (fast_add_layernorm, fast_add_layernorm_plain,
@@ -70,6 +71,25 @@ def test_ball_count_kernel_matches_plain(card):
     new_xyz = xyz[:, :300].contiguous()
     torch.testing.assert_close(ball_count(xyz, new_xyz, 0.1), ball_count_plain(xyz, new_xyz, 0.1),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,N,M,radius,nsample,far", [
+    (4, 1024, 512, 0.1, 32, False),  # a dense stage
+    (2, 1000, 300, 0.2, 32, False),  # N not a multiple of 32, past the 32-point window
+    (2, 512, 256, 0.3, 64, False),   # nsample above 32, above many hit counts
+    (3, 77, 20, 0.25, 16, False),    # M below one block's tile
+    (2, 256, 40, 0.1, 8, True),      # no hit at all: every slot 0
+])
+def test_ball_query_kernel_matches_plain(card, B, N, M, radius, nsample, far):
+    rng = np.random.default_rng(18)
+    xyz = torch.from_numpy(rng.uniform(-0.5, 0.5, size=(B, N, 3)).astype(np.float32)).to(card)
+    new_xyz = xyz[:, :M].contiguous() + (10.0 if far else 0.0)
+    before = _cuda.launch_counts["ball_query"]
+    got = ball_query(xyz, new_xyz, radius, nsample)
+    assert got.dtype == torch.int32 and got.shape == (B, M, nsample)
+    torch.testing.assert_close(got, ball_query_plain(xyz, new_xyz, radius, nsample),
+                               rtol=0, atol=0)
+    assert _cuda.launch_counts["ball_query"] == before + 1
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -189,3 +209,38 @@ def test_tiny_serving_path_on_card_matches_cpu(card):
     p_cpu = cpu.sample_candidates(batch, repeat_num=4, T0=0.55, num_steps=8, prior=prior)
     p_gpu = gpu.sample_candidates(batch, repeat_num=4, T0=0.55, num_steps=8, prior=prior)
     torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-4, atol=5e-4)
+
+
+def test_tiny_train_step_on_card_matches_cpu(card):
+    """One score train step at tiny_test_config: the FPS and ball-query
+    kernels and autograd on the card against the plain versions on the CPU,
+    from the same weights, batch and explicit draws.
+
+    The cloud is object-sized (a 30 cm cube), so that the 4 and 8 cm balls
+    of stage 0 hold points: in a 1 m cube nearly every ball holds only its
+    centroid, the first train-mode BatchNorm sees a batch variance near 0,
+    and its gradient is float32 rounding amplified by 1/std (a relative
+    perturbation of the cloud by 1e-7 moves it by up to 1.4e-3 of the
+    largest gradient, against 7e-6 here)."""
+    cfg = tiny_test_config()
+    torch.manual_seed(19)  # the modules' own initialisation
+    cpu = PoseAgent(cfg, "score", device="cpu")
+    _randomize(cpu.model, 19)
+    gpu = PoseAgent(cfg, "score", device=card)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    g = torch.Generator().manual_seed(20)
+    R = cfg.train.repeat_num
+    batch = {"pts": (torch.rand(3, 128, 3, generator=g) - 0.5) * 0.3,
+             "zero_mean_gt_pose": torch.randn(3, 9, generator=g) * 0.5}
+    draws = {"t": torch.rand(R, 3, 1, generator=g) * 0.9 + 0.05,
+             "z": torch.randn(R, 3, 9, generator=g)}
+    l_cpu, _, g_cpu, _ = cpu.loss_and_grads(cpu.init_state(), batch, draws=draws)
+    l_gpu, _, g_gpu, _ = gpu.loss_and_grads(gpu.init_state(),
+                                            {k: v.to(card) for k, v in batch.items()}, draws=draws)
+    # float32 summation order; gradients within the CPU tests' bound against
+    # JAX, 5e-4 of the largest entry (tests/test_torch_port_train_step.py)
+    assert abs(float(l_gpu.detach()) - float(l_cpu.detach())) <= 1e-4 * abs(float(l_cpu.detach()))
+    gmax = max(float(v.abs().max()) for v in g_cpu.values() if v is not None)
+    for k, v in g_cpu.items():
+        if v is not None:
+            assert float((g_gpu[k].cpu() - v).abs().max()) <= 5e-4 * gmax, k
