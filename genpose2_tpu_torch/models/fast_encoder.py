@@ -6,7 +6,8 @@ genpose2_tpu/models/fast_encoder.py:fast_cls_forward and fast_fus_forward).
 - BatchNorms are folded into per-layer affines.
 - Each grouped stage projects all points once to the first hidden width
   (``inp @ proj_kernel``, plain torch), then runs all its scales in one
-  fused SA kernel launch.
+  fused SA kernel launch, or one launch per scale where the JAX package does
+  (``stage_route``: at 2,048 points, stage 0).
 - At N >= 1024 (the dense stage) centroids are ordered by their in-radius
   count (``ball_count``, largest radius of the stage) before the kernel and
   the output is put back in FPS order after it. The order changes no value:
@@ -36,7 +37,8 @@ from genpose2_tpu_torch.models.pointnet2 import (PointNet2ClsMSG, PointNet2ClsMS
                                                  SetAbstractionMSG, _inputs)
 from genpose2_tpu_torch.ops.ball_query import ball_count, ball_count_plain
 from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
-from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage, fused_sa_stage_plain
+from genpose2_tpu_torch.ops.fused_sa import (fused_sa_scale, fused_sa_scale_plain, fused_sa_stage,
+                                             fused_sa_stage_plain, stage_route)
 from genpose2_tpu_torch.ops.grouping import gather_points
 from genpose2_tpu_torch.ops.layernorm import (fast_residual_layernorm,
                                               fast_residual_layernorm_plain)
@@ -95,8 +97,18 @@ def _fast_sa_stage(sa: SetAbstractionMSG, xyz, features, cfg: PointNet2Config, d
         nxs = new_xyz
 
     args = stage_arguments(sa, inp, nxs, cfg.use_xyz, dt)
-    run = fused_sa_stage_plain if plain else fused_sa_stage
-    cat = run(xyz, nxs, *args, sa.radii, sa.nsamples)
+    # the JAX package's route: one stage launch, or one launch per scale when
+    # its VMEM estimate is over budget (slot_chunk as fast_encoder.py:205)
+    projs, centers, affines_list, weights_list = args
+    route = stage_route(xyz.shape[1], nxs.shape[1], projs, affines_list, weights_list,
+                        sa.nsamples, 4 if use_skip else 8)
+    if route == "stage":
+        run = fused_sa_stage_plain if plain else fused_sa_stage
+        cat = run(xyz, nxs, *args, sa.radii, sa.nsamples)
+    else:  # scale outputs concatenated in scale order
+        run = fused_sa_scale_plain if plain else fused_sa_scale
+        cat = torch.cat([run(xyz, nxs, projs[s], centers[s], affines_list[s], weights_list[s],
+                             sa.radii[s], sa.nsamples[s]) for s in range(len(sa.radii))], dim=-1)
     if use_skip:
         cat = gather_points(cat, inv_order)
     return new_xyz, cat

@@ -41,7 +41,8 @@ NVCC_FLAGS = (
 
 # the launch_counts entry of each kernel wrapper
 KERNELS = ("fps", "ball_count", "fused_sa_stage", "fused_rk4", "residual_layernorm",
-           "add_layernorm", "relpe_attention", "vit_attention", "ball_query")
+           "add_layernorm", "relpe_attention", "vit_attention", "ball_query", "fused_sa_scale",
+           "fused_group_mlp_pool")
 
 launch_counts: collections.Counter = collections.Counter()
 

@@ -68,6 +68,35 @@ def matrix_to_rot6d_cols(R: torch.Tensor) -> torch.Tensor:
     return torch.cat([R[..., :, 0], R[..., :, 1]], dim=-1)
 
 
+def axis_angle_to_matrix(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: axis (..., 3) (normalised here), angle (...) radians -> (..., 3, 3)."""
+    axis = _normalize(axis)
+    x, y, z = axis.unbind(-1)
+    c, s = torch.cos(angle), torch.sin(angle)
+    C = 1 - c
+    m = torch.stack(
+        [
+            c + x * x * C, x * y * C - z * s, x * z * C + y * s,
+            y * x * C + z * s, c + y * y * C, y * z * C - x * s,
+            z * x * C - y * s, z * y * C + x * s, c + z * z * C,
+        ],
+        dim=-1,
+    )
+    return m.reshape(angle.shape + (3, 3))
+
+
+def get_pose_representation(R: torch.Tensor, pose_mode: str) -> torch.Tensor:
+    """(..., 3, 3) -> the rotation part of the pose representation. The
+    quaternion and 'rot_matrix' modes are ported."""
+    if pose_mode == "rot_matrix":
+        return matrix_to_rot6d_cols(R)
+    if pose_mode == "quat_wxyz":
+        return matrix_to_quaternion(R)
+    if pose_mode == "quat_xyzw":
+        return matrix_to_quaternion(R)[..., [1, 2, 3, 0]]
+    raise NotImplementedError(f"pose_mode {pose_mode!r} is not ported yet (see ROADMAP.md)")
+
+
 def get_rot_matrix(batch_rot: torch.Tensor, pose_mode: str) -> torch.Tensor:
     """Rotation part of a pose -> (..., 3, 3). Only 'rot_matrix' is ported."""
     if pose_mode == "rot_matrix":

@@ -40,7 +40,9 @@ from genpose2_tpu_torch.training.ema import ema_init, ema_update
 from genpose2_tpu_torch.training.optim import ClippedOptimizer, global_norm, make_lr_schedule
 from genpose2_tpu_torch.training.ranking import ranking_loss, sort_results
 
-RANK_T = (1e-5, 1e-4)  # the ranking energies' diffusion time range (agent.py:485)
+# the diffusion time range of the ranking energies and of detection-mode
+# energies (genpose2_tpu/training/agent.py:485, 683)
+RANK_T = (1e-5, 1e-4)
 _RUNNING = ("running_mean", "running_var")
 
 
@@ -233,15 +235,18 @@ class PoseAgent(_Trainable):
                           init_x: Optional[torch.Tensor] = None, method: str = "fixed",
                           num_steps: int = 500, features=None,
                           generator: Optional[torch.Generator] = None,
-                          prior: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          prior: Optional[torch.Tensor] = None,
+                          plain: bool = False) -> torch.Tensor:
         """``repeat_num`` pose candidates per object, (B, K, D), camera frame.
 
         ``features`` (pts_feat, None) from ``extract_features`` skips the
         encoder. ``prior`` (B * K, D) is the start noise; when None it is
-        drawn with ``generator``. With cfg.sampler.fused_fixed the integration
-        is one fused RK4 launch, otherwise the per-step loop."""
+        drawn with ``generator``. ``init_x`` (B, D) or (B, K, D), zero-mean,
+        warm-starts the integration (tracking): the prior is added to it.
+        With cfg.sampler.fused_fixed the integration is one fused RK4 launch,
+        otherwise (or with ``plain``) the per-step loop."""
         assert self.agent_type == "score"
-        pts_feat, _ = features if features is not None else self.extract_features(batch)
+        pts_feat, _ = features if features is not None else self.extract_features(batch, plain)
         B, K, D = pts_feat.shape[0], repeat_num, self.cfg.model.pose_dim
         feat_rep = pts_feat.repeat_interleave(K, dim=0)
         net = self.model.pose_score_net
@@ -256,7 +261,7 @@ class PoseAgent(_Trainable):
         def score(x, t):
             return fast_score(w, x, t, net.marginal_std_fn, dtype)
 
-        fused = w if method == "fixed" and self.cfg.sampler.fused_fixed else None
+        fused = w if method == "fixed" and self.cfg.sampler.fused_fixed and not plain else None
         poses, _ = ode_sampler(
             score, self.sde, B * K, D,
             T0=T0, init_x=init_x, num_steps=num_steps, pose_mode=self.cfg.model.pose_mode,
@@ -267,19 +272,29 @@ class PoseAgent(_Trainable):
         return poses.reshape(B, K, D)
 
     @torch.no_grad()
-    def get_energy(self, batch: dict, poses: torch.Tensor, fixed_t: float = 1e-5,
-                   features=None) -> torch.Tensor:
-        """Energy of camera-frame candidates (B, K, D) -> (B, K, 2), at
-        diffusion time ``fixed_t``; the cloud center is subtracted first."""
+    def get_energy(self, batch: dict, poses: torch.Tensor, fixed_t: Optional[float] = 1e-5,
+                   features=None, generator: Optional[torch.Generator] = None,
+                   t: Optional[torch.Tensor] = None, plain: bool = False) -> torch.Tensor:
+        """Energy of camera-frame candidates (B, K, D) -> (B, K, 2); the cloud
+        center is subtracted first. Diffusion time: ``fixed_t`` for every row,
+        or with ``fixed_t=None`` (detection mode) one draw per row from
+        U[1e-5, 1e-4) with ``generator``, unless ``t`` (B * K, 1) gives them.
+        ``plain`` runs the plain versions of the encoder's kernels."""
         assert self.agent_type == "energy"
-        pts_feat, _ = features if features is not None else self.extract_features(batch)
+        pts_feat, _ = features if features is not None else self.extract_features(batch, plain)
         B, K, D = poses.shape
         poses = poses.to(self.device).clone()
         center = batch.get("pts_center")
         if center is not None:
             poses[..., -3:] -= center.to(self.device)[:, None, :]
         flat = poses.reshape(B * K, D)
-        t = torch.full((B * K, 1), fixed_t, dtype=flat.dtype, device=self.device)
+        if t is not None:
+            t = t.to(self.device, flat.dtype).reshape(B * K, 1)
+        elif fixed_t is None:
+            lo, hi = RANK_T
+            t = torch.rand((B * K, 1), generator=generator, device=self.device) * (hi - lo) + lo
+        else:
+            t = torch.full((B * K, 1), fixed_t, dtype=flat.dtype, device=self.device)
         energy = self.model.energy(pts_feat.repeat_interleave(K, 0), flat, t, True)
         return energy.reshape(B, K, 2)
 

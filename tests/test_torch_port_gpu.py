@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from genpose2_tpu_torch.config import tiny_test_config
+from genpose2_tpu_torch.api import GenPose2
+from genpose2_tpu_torch.config import tiny_flagship_config, tiny_test_config
+from genpose2_tpu_torch.data import synthetic_frame
 from genpose2_tpu_torch.diffusion.sde import init_sde
 from genpose2_tpu_torch.models.attention import EfficientRelativePositionalEncoding
 from genpose2_tpu_torch.models.scorenet import PoseScoreNet, fast_score_weights
@@ -22,7 +24,9 @@ from genpose2_tpu_torch.ops import _cuda
 from genpose2_tpu_torch.ops.ball_query import (ball_count, ball_count_plain, ball_query,
                                                ball_query_plain)
 from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
-from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage, fused_sa_stage_plain
+from genpose2_tpu_torch.ops.fused_sa import (fused_group_mlp_pool, fused_group_mlp_pool_plain,
+                                             fused_sa_scale, fused_sa_scale_plain, fused_sa_stage,
+                                             fused_sa_stage_plain)
 from genpose2_tpu_torch.ops.layernorm import (fast_add_layernorm, fast_add_layernorm_plain,
                                               fast_residual_layernorm,
                                               fast_residual_layernorm_plain)
@@ -120,6 +124,64 @@ def test_fused_sa_kernel_matches_plain(card, bf16, num_layers):
     tol = 1e-2 if bf16 else 1e-4
     torch.testing.assert_close(fused_sa_stage(*args), fused_sa_stage_plain(*args),
                                rtol=tol, atol=tol)
+
+
+def _sa_scale_operands(rng, card, B, N, M, h1, num_layers, dt):
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(card, dtype)
+
+    ws = [h1] + [48, 40][:num_layers]
+    proj = t(rng.normal(size=(B, N, h1)), dt)
+    center = t(rng.normal(size=(B, M, h1)))
+    affines = [(t(rng.uniform(0.5, 1.5, size=w)), t(rng.normal(size=w))) for w in ws]
+    weights = [t(rng.normal(size=(a, b)) / np.sqrt(a), dt) for a, b in zip(ws[:-1], ws[1:])]
+    return t, proj, center, affines, weights
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,N,M,radius,nsample,num_layers,far", [
+    (2, 2048, 512, 0.1, 32, 2, False),  # the dense stage 0
+    (2, 1000, 300, 0.2, 32, 2, False),  # N not a multiple of 32
+    (2, 512, 256, 0.3, 64, 2, False),   # nsample 64
+    (2, 256, 40, 0.1, 16, 2, True),     # no hit at all: the point-0 row
+    (2, 700, 40, 0.2, 16, 0, False),    # no MLP layer: the projection pooled
+])
+def test_fused_sa_scale_kernel_matches_plain(card, bf16, B, N, M, radius, nsample, num_layers,
+                                             far):
+    rng = np.random.default_rng(21)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    t, proj, center, affines, weights = _sa_scale_operands(rng, card, B, N, M, 32, num_layers,
+                                                           dt)
+    xyz = rng.uniform(-0.5, 0.5, size=(B, N, 3))
+    new_xyz = xyz[:, :M] + (10.0 if far else 0.0)
+    args = (t(xyz), t(new_xyz), proj, center, affines, weights, radius, nsample)
+    before = _cuda.launch_counts["fused_sa_scale"]
+    got = fused_sa_scale(*args)
+    assert _cuda.launch_counts["fused_sa_scale"] == before + 1
+    # as the stage kernel: f32 summation order; bf16 one flipped rounding
+    tol = 1e-2 if bf16 else 1e-4
+    torch.testing.assert_close(got, fused_sa_scale_plain(*args), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_group_mlp_pool_kernel_matches_plain(card, bf16):
+    rng = np.random.default_rng(22)
+    B, N, M, S = 2, 1000, 300, 40
+    dt = torch.bfloat16 if bf16 else torch.float32
+    _, proj, center, affines, weights = _sa_scale_operands(rng, card, B, N, M, 32, 2, dt)
+    idx = rng.integers(0, N, size=(B, M, S))
+    idx[:, :20, 3] = -1  # outside [0, N): a zero row
+    idx[:, 20:40, 7] = N
+    idx[:, 40:60, 1:] = idx[:, 40:60, :1]  # one point in every slot
+    idx[:, 60:80, 20:] = idx[:, 60:80, :20]  # repeats across the 32-slot window
+    idx[:, 80] = -5  # every slot outside
+    idx = torch.from_numpy(idx.astype(np.int32)).to(card)
+    before = _cuda.launch_counts["fused_group_mlp_pool"]
+    got = fused_group_mlp_pool(proj, idx, center, affines, weights)
+    assert _cuda.launch_counts["fused_group_mlp_pool"] == before + 1
+    tol = 1e-2 if bf16 else 1e-4
+    torch.testing.assert_close(got, fused_group_mlp_pool_plain(proj, idx, center, affines,
+                                                               weights), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("mode", ["ve", "vp", "subvp"])
@@ -244,3 +306,42 @@ def test_tiny_train_step_on_card_matches_cpu(card):
     for k, v in g_cpu.items():
         if v is not None:
             assert float((g_gpu[k].cpu() - v).abs().max()) <= 5e-4 * gmax, k
+
+
+def test_tiny_frame_on_card_matches_cpu(card):
+    """GenPose2 at tiny_flagship_config on one synthetic frame, detection then
+    tracking: the kernels on the card against the plain versions on the CPU,
+    same weights, same front-end batch, same prior and energy times."""
+    cfg = tiny_flagship_config()
+    torch.manual_seed(23)
+    cpu = GenPose2(cfg, energy=True, scale=True, num_steps=8, device="cpu")
+    for agent in (cpu.score_agent, cpu.energy_agent):
+        _randomize(agent.model, 24)
+        _randomize(agent.provider.vit, 25)
+    _randomize(cpu.scale_agent.model, 26)
+    gpu = GenPose2(cfg, score=_weights(cpu.score_agent), energy=_weights(cpu.energy_agent),
+                   scale=cpu.scale_agent.model.state_dict(), num_steps=8, device=card)
+    rng = np.random.default_rng(27)
+    objs = synthetic_frame.random_scene(rng, 3, 160, 120, 150.0, depth=(0.5, 0.8))
+    raw = cpu.front_end(synthetic_frame.render(rng, objs, 160, 120, 150.0))
+    n, K = len(raw["mask_ids"]), cfg.eval.eval_repeat_num
+    g = torch.Generator().manual_seed(28)
+    prev = None
+    for tracking in (False, True):
+        prior = torch.randn(n * K, 9, generator=g) * 0.3
+        t = torch.rand(n * K, 1, generator=g) * 9e-5 + 1e-5
+        a = cpu.serve_batch(raw, prev, tracking, prior=prior, energy_t=t)
+        b = gpu.serve_batch(raw, None if prev is None else prev.to(card), tracking,
+                            prior=prior, energy_t=t)
+        # the slice's bounds: features 2e-4, candidates the fused RK4's 5e-4
+        torch.testing.assert_close(b["features"].cpu(), a["features"], rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(b["candidates"].cpu(), a["candidates"], rtol=1e-4, atol=5e-4)
+        agg = a["aggregate"]
+        prev = torch.cat([agg["rotation"][..., 0], agg["rotation"][..., 1], agg["translation"]],
+                         dim=-1)
+
+
+def _weights(agent):
+    sd = dict(agent.model.state_dict())
+    sd.update({f"dino.{k}": v for k, v in agent.provider.vit.state_dict().items()})
+    return sd
