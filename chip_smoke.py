@@ -16,15 +16,20 @@ Phases, one JSON line each:
             (dino='pointwise') agents on the card against the plain versions
             on the CPU (the plain versions are held against the JAX package by
             tests/test_torch_port_*.py); each stage gets the CPU's input; and
-            one score train step of each (loss, gradients, parameters); its
-            weights and inputs from generators of its own;
+            one score train step of each (loss, gradients, parameters); then
+            the serving stages of tiny_flagship_config with dino='global' and
+            of tiny_flagship_config with a bf16 backbone and both ViT
+            switches on; its weights and inputs from generators of its own;
   kernels   each kernel against its plain version on the card, at the shapes
             of the main paths, in float32 and in bf16 (discrete outputs exact);
             ball query and FPS also at each grouped stage of the training
             path's module forward, and ball query's edge cases; the per-scale
             SA kernel and the SA kernel from indices at the dense
             configuration's stage 0 (B=64, N=2048, M=512, both scales) and
-            at their edge cases;
+            at their edge cases; the ViT's switch kernels: LayerNorm at
+            (64 x 272, 384), the unpadded attention at (64, 261, 384) and the
+            in-kernel RoPE attention at the padded flagship shape with the
+            flagship's tables;
   request   requests through PoseAgent / ScaleAgent at full width (B=64
             objects, 1024 points, K=50 candidates, 50 RK4 steps from T0=0.55,
             energies at t=1e-5, retain 0.4 with clustering): dino='none' once
@@ -32,9 +37,15 @@ Phases, one JSON line each:
             (DINOv3 ViT-S+/16 on 256-px crops, ImgEncoder, Fus PointNet++)
             twice in bench.py's all-bf16 settings and once in float32; the
             dense configuration (the flagship at 2,048 points, whose stage 0
-            runs one SA kernel per scale) once in bf16 and once in float32.
+            runs one SA kernel per scale) once in bf16 and once in float32;
+            the flagship with both ViT switches on (in-kernel RoPE, deferred
+            block tails) once in bf16 and once in float32; dino='global'
+            (the class token of the ViT, the PointNet++ module encoder in
+            eval form, the rgb rows of the heads) with the DINOv3 backbone in
+            bf16 and in float32 and the DINOv2 backbone in bf16; and one
+            DINOv3 block on an unpadded 261-token axis (B=64) per dtype.
             The ViT runs once per request and the energy agent reuses its
-            layers.
+            output.
             Launch counts are reset just before and read just after each
             request; the score feature and the candidates are recomputed with
             the plain versions on the card;
@@ -42,8 +53,10 @@ Phases, one JSON line each:
             frame of 12 ellipsoids: the flagship (1,024 points) for one
             detection call and 10 tracking calls, the dense configuration for
             one detection call and 3 tracking calls, each with the host
-            front end's and the device's ms and exact launch counts; the
-            detection calls again through the plain versions on the card;
+            front end's and the device's ms and exact launch counts; then
+            dino='global' (DINOv3, bf16) for one detection call and 3 tracking
+            calls; the detection calls again through the plain versions on
+            the card;
   train     flagship score train steps as scripts/bench_train.py takes them
             (B=64, N=1024, 256-px N(0,1) crops, repeat_num 20, Adam): 5 in its
             float32 setting and 5 in its bf16 setting, each step's launch
@@ -55,15 +68,17 @@ Phases, one JSON line each:
             PyTorch call computes the same function, that call, at the main
             paths' shapes, with the bound from this run's shapes and data;
   profile   torch.profiler device time by kernel name over one bf16 flagship
-            request, one flagship train step and the device part of one bf16
-            tracking call of each frame configuration, and the device's busy
-            share against the same work unprofiled.
+            request, one bf16 dino='global' request, one flagship train step
+            and the device part of one bf16 tracking call of each frame
+            configuration, and the device's busy share against the same work
+            unprofiled.
 Then the kernels table, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints no
 such line; so does a machine without a card, or a directory without the
 package.
 """
 
+import contextlib
 import cProfile
 import json
 import math
@@ -202,6 +217,8 @@ def main():
     from genpose2_tpu_torch.models.scorenet import fast_score_weights
     from genpose2_tpu_torch.ops import _cuda
     from genpose2_tpu_torch.models import pointnet2 as pointnet2_module
+    from genpose2_tpu_torch.models import vit as vit_module
+    from genpose2_tpu_torch.models.vit import rope_tables
     from genpose2_tpu_torch.ops.ball_query import (ball_count, ball_count_plain, ball_query,
                                                    ball_query_plain)
     from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
@@ -210,13 +227,15 @@ def main():
                                                  fused_sa_stage, fused_sa_stage_plain)
     from genpose2_tpu_torch.ops.grouping import gather_points
     from genpose2_tpu_torch.ops.layernorm import (LN_EPS, fast_add_layernorm,
-                                                  fast_add_layernorm_plain,
+                                                  fast_add_layernorm_plain, fast_layernorm,
+                                                  fast_layernorm_plain,
                                                   fast_residual_layernorm,
                                                   fast_residual_layernorm_plain)
     from genpose2_tpu_torch.ops.ode_rk4 import (compute_dtype_of, fused_rk4_integrate,
                                                 fused_rk4_plain)
     from genpose2_tpu_torch.ops.relpe_attention import relpe_attention, relpe_attention_plain
-    from genpose2_tpu_torch.ops.vit_attention import vit_attention_tm, vit_attention_tm_plain
+    from genpose2_tpu_torch.ops.vit_attention import (vit_attention, vit_attention_plain,
+                                                      vit_attention_tm, vit_attention_tm_plain)
     from genpose2_tpu_torch.so3.rotations import matrix_to_rot6d_cols
     from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent
     from genpose2_tpu_torch.training.optim import global_norm
@@ -267,6 +286,24 @@ def main():
         return cfg.replace(model=dataclasses.replace(cfg.model, num_points=2 * N),
                            data=dataclasses.replace(cfg.data, num_points=2 * N))
 
+    def global_config(dtype, backbone="dinov3_vits16plus"):
+        """The flagship settings with dino='global': the backbone's class token
+        and the PointNet++ module encoder on the cloud alone."""
+        cfg = flagship_config(dtype)
+        return cfg.replace(model=dataclasses.replace(cfg.model, dino="global",
+                                                     backbone=backbone))
+
+    @contextlib.contextmanager
+    def vit_switches(on=True):
+        """Both ViT switches (in-kernel RoPE, deferred block tails) set to
+        ``on`` inside the block, restored after."""
+        saved = vit_module._INKERNEL_ROPE, vit_module._DEFER_TAIL
+        vit_module._INKERNEL_ROPE = vit_module._DEFER_TAIL = on
+        try:
+            yield
+        finally:
+            vit_module._INKERNEL_ROPE, vit_module._DEFER_TAIL = saved
+
     gen = torch.Generator().manual_seed(SEED)
 
     def to_card(batch):
@@ -314,43 +351,65 @@ def main():
             for k in tol:
                 assert errs[k] <= tol[k], f"{name} {k}: {errs[k]} > {tol[k]}"
 
-    def reference_errors(rgen):
-        """Yield (config name, errors, tolerances) of both tiny configs."""
-        for name, tiny in (("tiny_test_config", tiny_test_config()),
-                           ("tiny_flagship_config", tiny_flagship_config())):
-            cpu = PoseAgent(tiny, "score", device="cpu")
-            randomize(cpu.model, rgen)
-            card = PoseAgent(tiny, "score", device=dev)
-            card.model.load_state_dict(cpu.model.state_dict())
-            m = tiny.model
-            pts = torch.rand(4, m.num_points, 3, generator=rgen) * 0.3
-            prior = torch.randn(4 * 8, 9, generator=rgen) * 0.5
-            batch = {"pts": pts, "pts_center": pts.mean(1)}
-            errs, tol = {}, {}
+    def serving_errors(tiny, rgen):
+        """A tiny config's score agent, card against CPU: the backbone's
+        output, the point (and global rgb) feature from the CPU's image
+        features, the candidates from the CPU's features. Returns (CPU agent,
+        card agent, the batch with the CPU's image features, errors,
+        tolerances)."""
+        cpu = PoseAgent(tiny, "score", device="cpu")
+        randomize(cpu.model, rgen)
+        card = PoseAgent(tiny, "score", device=dev)
+        card.model.load_state_dict(cpu.model.state_dict())
+        m = tiny.model
+        pts = torch.rand(4, m.num_points, 3, generator=rgen) * 0.3
+        prior = torch.randn(4 * 8, 9, generator=rgen) * 0.5
+        batch = {"pts": pts, "pts_center": pts.mean(1)}
+        errs, tol = {}, {}
+        if m.dino != "none":
+            randomize(cpu.provider.vit, rgen)
+            card.provider.vit.load_state_dict(cpu.provider.vit.state_dict())
+            batch["roi_rgb"] = torch.randn(4, m.img_size, m.img_size, 3, generator=rgen)
             if m.dino == "pointwise":
-                randomize(cpu.provider.vit, rgen)
-                card.provider.vit.load_state_dict(cpu.provider.vit.state_dict())
-                batch["roi_rgb"] = torch.randn(4, m.img_size, m.img_size, 3, generator=rgen)
                 batch["roi_xs"] = torch.randint(0, m.img_size, (4, m.num_points), generator=rgen)
                 batch["roi_ys"] = torch.randint(0, m.img_size, (4, m.num_points), generator=rgen)
-                l_cpu = cpu.with_image_features(batch)["dino_layers"]
-                l_card = card.with_image_features({k: v.to(dev) for k, v in batch.items()})
-                errs["dino_layers"] = max(max_err(a.cpu(), b) for a, b in
-                                          zip(l_card["dino_layers"], l_cpu))
-                tol["dino_layers"] = 1e-4  # float32 summation order through 2 blocks
-                batch["dino_layers"] = l_cpu
-            on_card = to_card(batch)
-            f_cpu, _ = cpu.extract_features(batch)
-            f_card, _ = card.extract_features(on_card)
-            p_cpu = cpu.sample_candidates(batch, repeat_num=8, T0=T0, num_steps=10,
-                                          features=(f_cpu, None), prior=prior)
-            p_card = card.sample_candidates(on_card, repeat_num=8, T0=T0, num_steps=10,
-                                            features=(f_cpu.to(dev), None), prior=prior)
-            errs["feature"] = max_err(f_card.cpu(), f_cpu)
-            errs["candidates"] = max_err(p_card.cpu(), p_cpu)
-            # the JAX package's float32 bounds: encoder (tests/test_models.py:446),
-            # fused RK4 against the scan (tests/test_ode_fused.py:112)
-            tol["feature"], tol["candidates"] = 2e-4, 5e-4
+            else:
+                d = torch.randn(4, 3, generator=rgen)
+                batch["roi_center_dir"] = d / d.norm(dim=-1, keepdim=True)
+            key = "dino_global" if m.dino == "global" else "dino_layers"
+            l_cpu = cpu.with_image_features(batch)[key]
+            l_card = card.with_image_features(to_card(batch))[key]
+            errs[key] = max(max_err(a.cpu(), b) for a, b in zip(l_card, l_cpu))
+            # float32: summation order through 2 blocks; a bf16 backbone: flips
+            # of bf16 roundings (the CPU tests' bf16 bound against JAX)
+            tol[key] = 1e-4 if m.backbone_dtype == "float32" else 5e-2
+            batch[key] = l_cpu
+        on_card = to_card(batch)
+        f_cpu, r_cpu = cpu.extract_features(batch)
+        f_card, r_card = card.extract_features(on_card)
+        feats = (f_cpu.to(dev), None if r_cpu is None else r_cpu.to(dev))
+        p_cpu = cpu.sample_candidates(batch, repeat_num=8, T0=T0, num_steps=10,
+                                      features=(f_cpu, r_cpu), prior=prior)
+        p_card = card.sample_candidates(on_card, repeat_num=8, T0=T0, num_steps=10,
+                                        features=feats, prior=prior)
+        errs["feature"] = max_err(f_card.cpu(), f_cpu)
+        errs["candidates"] = max_err(p_card.cpu(), p_cpu)
+        # the JAX package's float32 bounds: encoder (tests/test_models.py:446),
+        # fused RK4 against the scan (tests/test_ode_fused.py:112)
+        tol["feature"], tol["candidates"] = 2e-4, 5e-4
+        if r_cpu is not None:
+            # the same class token on both sides, sin/cos of 2^k * direction
+            errs["rgb_feature"], tol["rgb_feature"] = max_err(r_card.cpu(), r_cpu), 1e-5
+        return cpu, card, batch, errs, tol
+
+    def reference_errors(rgen):
+        """Yield (config name, errors, tolerances) of the tiny configs: both
+        serving and a train step for tiny_test_config and
+        tiny_flagship_config, serving for dino='global' and for the switched
+        bf16 backbone."""
+        for name, tiny in (("tiny_test_config", tiny_test_config()),
+                           ("tiny_flagship_config", tiny_flagship_config())):
+            cpu, card, batch, errs, tol = serving_errors(tiny, rgen)
             errs.update(train_step_card_vs_cpu(tiny, cpu, card, batch, rgen))
             # loss: float32 summation order (cuBLAS against the CPU's); gradients:
             # the CPU tests' bound against JAX, 5e-4 of the largest entry
@@ -359,6 +418,14 @@ def main():
             # EMA operations, the CPU tests' 1e-6 of max(1, |p|)
             tol.update(train_loss_rel=1e-4, train_grad_err_over_max=5e-4,
                        train_param_err=1e-6, train_ema_err=1e-6)
+            yield name, errs, tol
+        base = tiny_flagship_config()
+        for name, model, switched in (
+                ("tiny_global_config", dataclasses.replace(base.model, dino="global"), False),
+                ("tiny_flagship_switched_bf16",
+                 dataclasses.replace(base.model, backbone_dtype="bfloat16"), True)):
+            with vit_switches(switched):
+                errs, tol = serving_errors(base.replace(model=model), rgen)[3:]
             yield name, errs, tol
 
     def train_step_card_vs_cpu(tiny, cpu, card, batch, rgen):
@@ -416,7 +483,9 @@ def main():
 
     reference()
     paths = {"none": make_agents(none_config), "pointwise": make_agents(flagship_config),
-             "dense": make_agents(dense_config)}
+             "dense": make_agents(dense_config), "global": make_agents(global_config),
+             "global_dinov2": make_agents(lambda dt: global_config(dt, "dinov2_vits16"))}
+    paths["switched"] = paths["pointwise"]  # the flagship's agents, both ViT switches on
 
     # ------------------------------------------------- kernels vs plain versions
     pts0 = object_clouds(gen, dev)
@@ -493,6 +562,25 @@ def main():
     add_in = tuple(torch.randn(B, vit_in["bfloat16"][0].shape[1], vit_dim, generator=gen)
                    .to(dev, torch.bfloat16) for _ in range(2)) \
         + tuple(torch.randn(vit_dim, generator=gen).to(dev) for _ in range(3))
+    # the ViT's switch kernels: LayerNorm of the (64, 272, 384) stream, the
+    # attention on the 261 real tokens, the in-kernel RoPE tables of the
+    # flagship (256 patches, identity rows for the prefix and the pad rows)
+    ln_vit_in = {dtype: (add_in[0].to(compute_dtype_of(dtype)),) + add_in[3:]
+                 for dtype in ("float32", "bfloat16")}
+    unpadded_in = {dtype: tuple(t[:, :n_valid].contiguous() for t in vit_in[dtype])
+                   for dtype in vit_in}
+
+    def flagship_tables(n_pad):
+        """sin, cos (n_pad, head_dim) float32 as DinoV3ViT builds them for
+        256-px crops, before the per-head tiling."""
+        periods = paths["pointwise"]["bfloat16"][0].provider.vit.rope_embed.periods
+        g = S // vit_cfg.patch_size
+        sn, cs = rope_tables(periods, g, g)
+        hd = sn.shape[1]
+        return (torch.cat([sn.new_zeros(5, hd), sn, sn.new_zeros(n_pad - n_valid, hd)]),
+                torch.cat([cs.new_ones(5, hd), cs, cs.new_ones(n_pad - n_valid, hd)]))
+
+    rope_in = {dtype: flagship_tables(t[0].shape[1]) for dtype, t in vit_in.items()}
 
     # the training path's grouped stages: FPS on each stage's own points
     # (N = 1024, 512, 256, 128), both scales' ball queries on its centroids
@@ -679,6 +767,30 @@ def main():
             name = "vit_attention" if dtype == "float32" else "vit_attention.bf16"
             results[name] = {"max_abs_err": err, "tolerance": f"rtol=atol={tol}"}
             line["vit"][dtype] = {"max_abs_err": err, "within": within}
+        # the ViT's switch kernels at the flagship shapes, to the bounds above:
+        # LayerNorm 1e-5 / 2e-2 (bf16 out), both attentions 1e-5 / 2e-2 on the
+        # real rows
+        line["vit_switch"] = {}
+        for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+            sfx = "" if dtype == "float32" else ".bf16"
+            x, sc, bi = ln_vit_in[dtype]
+            q, k, v = vit_in[dtype]
+            sn, cs = rope_in[dtype]
+            pairs = {"layernorm": (fast_layernorm(x, sc, bi), fast_layernorm_plain(x, sc, bi)),
+                     "vit_attention_unpadded": (vit_attention(*unpadded_in[dtype], vit_heads),
+                                                vit_attention_plain(*unpadded_in[dtype],
+                                                                    vit_heads)),
+                     "vit_attention_rope": tuple(
+                         f(q, k, v, vit_heads, n_valid, sin=sn, cos=cs)[:, :n_valid]
+                         for f in (vit_attention_tm, vit_attention_tm_plain))}
+            errs = {}
+            for name, (got, want) in pairs.items():
+                errs[name] = max_err(got, want)
+                within = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+                              and torch.isfinite(got).all())
+                ok = ok and within
+                results[name + sfx] = {"max_abs_err": errs[name], "tolerance": f"rtol=atol={tol}"}
+            line["vit_switch"][dtype] = errs
         # the per-scale SA kernel and the SA kernel from indices: the dense
         # stage 0 and the edge cases, to the stage kernel's bounds
         line["sa_dense_stage0"] = {}
@@ -708,6 +820,17 @@ def main():
     # ---------------------------------------------------------------- requests
     per_request = []
 
+    def counted(fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after; returns (result, ms on the host clock, counts)."""
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        return out, ms, {k: _cuda.launch_counts[k] for k in _cuda.KERNELS}
+
     def new_request(path, dtype):
         n_pts = paths[path][dtype][0].cfg.model.num_points
         pts = object_clouds(gen, dev, B, n_pts)
@@ -715,6 +838,10 @@ def main():
         batch = {"pts": pts, "pts_center": pts.mean(1)}
         if path != "none":
             batch["roi_rgb"] = torch.randn(B, S, S, 3, generator=gen).to(dev)
+        if path.startswith("global"):
+            d = torch.randn(B, 3, generator=gen)
+            batch["roi_center_dir"] = (d / d.norm(dim=-1, keepdim=True)).to(dev)
+        elif path != "none":
             batch["roi_xs"] = torch.randint(0, S, (B, n_pts), generator=gen).to(dev)
             batch["roi_ys"] = torch.randint(0, S, (B, n_pts), generator=gen).to(dev)
         return batch, prior
@@ -736,11 +863,23 @@ def main():
         return feats, poses, en, agg, lengths
 
     def expected_counts(path, dtype):
+        """Launches per request, as the JAX package routes it."""
+        bf16 = dtype == "bfloat16"
         want = dict.fromkeys(_cuda.KERNELS, 0)
+        if path.startswith("global"):
+            # the module encoder of the score and of the energy agent: FPS per
+            # grouped stage, a ball query per scale; the DINOv2 ViT is plain
+            want.update(fps=8, ball_query=16, fused_rk4=1)
+            if path == "global":
+                want.update(vit_attention=12, add_layernorm=12 if bf16 else 0)
+            return want
         want.update(fps=2, ball_count=2, fused_sa_stage=8, fused_rk4=1)
         if path != "none":
             want.update(relpe_attention=8, residual_layernorm=16, vit_attention=12,
-                        add_layernorm=12 if dtype == "bfloat16" else 0)
+                        add_layernorm=12 if bf16 else 0)
+        if path == "switched":  # RoPE in every attention; bf16: the tails deferred
+            want.update(vit_attention=0, vit_attention_rope=12, layernorm=int(bf16),
+                        add_layernorm=23 if bf16 else 0)
         if path == "dense":  # stage 0 of both encoders: one launch per scale
             want.update(fused_sa_stage=6, fused_sa_scale=4)
         return want
@@ -750,54 +889,92 @@ def main():
         ok = True
         order = [("none", "float32"), ("none", "bfloat16"), ("pointwise", "bfloat16"),
                  ("pointwise", "bfloat16"), ("pointwise", "float32"), ("dense", "bfloat16"),
-                 ("dense", "float32")]
+                 ("dense", "float32"), ("switched", "bfloat16"), ("switched", "float32"),
+                 ("global", "bfloat16"), ("global", "float32"), ("global_dinov2", "bfloat16")]
         for r, (path, dtype) in enumerate(order):
-            s = paths[path][dtype][0]
-            raw, prior = new_request(path, dtype)
-            torch.cuda.synchronize()
-            _cuda.reset_launch_counts()
-            t0 = time.perf_counter()
-            feats, poses, en, agg, lengths = serve(path, dtype, raw, prior)
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0)
-            counts = {k: _cuda.launch_counts[k] for k in _cuda.KERNELS}
-
-            R = agg["rotation"]
-            eye = torch.eye(3, device=dev).expand_as(R)
-            orth = float((R.transpose(1, 2) @ R - eye).abs().max())
-            det = float((torch.linalg.det(R) - 1).abs().max())
-            finite = all(bool(torch.isfinite(t).all()) for t in
-                         (feats[0], poses, en, R, agg["translation"], lengths))
-            shapes = [tuple(feats[0].shape), tuple(poses.shape), tuple(en.shape),
-                      tuple(lengths.shape)]
-            f_plain, _ = s.extract_features(s.with_image_features(raw, plain=True), plain=True)
-            p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, num_steps=STEPS, plain=True,
-                                          features=(feats[0], None), prior=prior)
-            f_err = rel_err(feats[0], f_plain)
-            p_err = max_err(poses, p_plain)
-            # feature: max error over max |plain| (f32: summation order through
-            # the ViT and the encoders; bf16: flips of bf16 roundings carried
-            # through 12 ViT blocks and 5 encoder stages); candidates: the JAX
-            # package's bound for its fused kernel against its scan after
-            # denoise and renormalisation (f32), the kernels phase's bf16
-            # bound carried through those steps (bf16)
-            if dtype == "float32":
-                f_tol, p_tol = (1e-4 if path == "none" else 2e-4), 5e-4
-            else:
-                f_tol, p_tol = (2e-2 if path == "none" else 5e-2), 2e-2
-            want_counts = expected_counts(path, dtype)
-            good = (counts == want_counts and finite and orth < 1e-4 and det < 1e-4
-                    and shapes == [(B, 1024), (B, K, 9), (B, K, 2), (B, 3)]
-                    and f_err <= f_tol and p_err <= p_tol)
+            with vit_switches(path == "switched"):
+                good = request(r, path, dtype)
             ok = ok and good
-            per_request.append({"path": path, "dtype": dtype, "counts": counts, "ms": ms})
-            emit({"phase": "request", "index": r, "path": path, "dtype": dtype, "ok": good,
-                  "request_ms": ms, "launches": counts, "expected": want_counts,
-                  "finite": finite, "orthonormality_err": orth, "det_err": det,
-                  "shapes": shapes, "feature_err_over_max": f_err, "feature_tol": f_tol,
-                  "candidates_max_abs_err": p_err, "candidates_tol": p_tol})
+        ok = unpadded_blocks() and ok
         if not ok:
             raise AssertionError("a request failed its checks")
+
+    def request(r, path, dtype):
+        """One request of the path, its checks, its line; returns whether it
+        passed."""
+        s = paths[path][dtype][0]
+        raw, prior = new_request(path, dtype)
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        feats, poses, en, agg, lengths = serve(path, dtype, raw, prior)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = {k: _cuda.launch_counts[k] for k in _cuda.KERNELS}
+
+        R = agg["rotation"]
+        eye = torch.eye(3, device=dev).expand_as(R)
+        orth = float((R.transpose(1, 2) @ R - eye).abs().max())
+        det = float((torch.linalg.det(R) - 1).abs().max())
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                     (feats[0], poses, en, R, agg["translation"], lengths))
+        shapes = [tuple(feats[0].shape), tuple(poses.shape), tuple(en.shape),
+                  tuple(lengths.shape)]
+        f_plain, r_plain = s.extract_features(s.with_image_features(raw, plain=True),
+                                              plain=True)
+        p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, num_steps=STEPS, plain=True,
+                                      features=feats, prior=prior)
+        f_err = rel_err(feats[0], f_plain)
+        if r_plain is not None:  # the global rgb feature: the feature's bound
+            f_err = max(f_err, rel_err(feats[1], r_plain))
+        p_err = max_err(poses, p_plain)
+        # feature: max error over max |plain| (f32: summation order through
+        # the ViT and the encoders; bf16: flips of bf16 roundings carried
+        # through 12 ViT blocks and 5 encoder stages); candidates: the JAX
+        # package's bound for its fused kernel against its scan after
+        # denoise and renormalisation (f32), the kernels phase's bf16
+        # bound carried through those steps (bf16)
+        if dtype == "float32":
+            f_tol, p_tol = (1e-4 if path == "none" else 2e-4), 5e-4
+        else:
+            f_tol, p_tol = (2e-2 if path == "none" else 5e-2), 2e-2
+        want_counts = expected_counts(path, dtype)
+        good = (counts == want_counts and finite and orth < 1e-4 and det < 1e-4
+                and shapes == [(B, 1024), (B, K, 9), (B, K, 2), (B, 3)]
+                and f_err <= f_tol and p_err <= p_tol)
+        per_request.append({"path": path, "dtype": dtype, "counts": counts, "ms": ms})
+        emit({"phase": "request", "index": r, "path": path, "dtype": dtype, "ok": good,
+              "request_ms": ms, "launches": counts, "expected": want_counts,
+              "finite": finite, "orthonormality_err": orth, "det_err": det,
+              "shapes": shapes, "feature_err_over_max": f_err, "feature_tol": f_tol,
+              "candidates_max_abs_err": p_err, "candidates_tol": p_tol})
+        return good
+
+    def unpadded_blocks():
+        """Block 0 of the flagship backbone on an unpadded 261-token axis (B=64),
+        the route of DinoV3Attention for such an axis: one unpadded attention
+        launch per call (bf16: also the add+LN), against the plain block."""
+        ok = True
+        for dtype in ("float32", "bfloat16"):
+            vit = paths["pointwise"][dtype][0].provider.vit
+            x = torch.randn(B, n_valid, vit_dim, generator=gen).to(dev, compute_dtype_of(dtype))
+            sn, cs = (t.repeat(1, vit_heads) for t in flagship_tables(n_valid))
+            (y, pend), ms, counts = counted(
+                lambda: vit.blocks[0](x, sn, cs, n_valid, vit.dtype, False))
+            y_plain, _ = vit.blocks[0](x, sn, cs, n_valid, vit.dtype, True)
+            want = dict.fromkeys(_cuda.KERNELS, 0)
+            want.update(vit_attention_unpadded=1, add_layernorm=int(dtype == "bfloat16"))
+            # one block: f32 summation order; bf16 a flipped rounding of the stream
+            err, tol = rel_err(y, y_plain), (1e-4 if dtype == "float32" else 2e-2)
+            good = (counts == want and pend is None and err <= tol
+                    and tuple(y.shape) == (B, n_valid, vit_dim) and bool(torch.isfinite(y).all()))
+            ok = ok and good
+            per_request.append({"path": "unpadded_block", "dtype": dtype, "counts": counts,
+                                "ms": ms})
+            emit({"phase": "request", "path": "unpadded_block", "dtype": dtype, "ok": good,
+                  "block_ms": ms, "launches": counts, "expected": want,
+                  "err_over_max": err, "tol": tol})
+        return ok
 
     requests()
 
@@ -830,17 +1007,6 @@ def main():
         if vit:
             want.update(vit_attention=12, add_layernorm=12)
         return want
-
-    def counted(fn):
-        """fn() with the launch counts set to 0 just before and read just
-        after; returns (result, ms on the host clock, counts)."""
-        torch.cuda.synchronize()
-        _cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
-        return out, ms, {k: _cuda.launch_counts[k] for k in _cuda.KERNELS}
 
     def clone_state(st):
         return {"step": st.step, "ema_updates": st.ema_updates,
@@ -1037,7 +1203,7 @@ def main():
         branch = "native" if native.available() else "numpy"
         summary = []
         for path, dtype, calls in (("pointwise", "bfloat16", 11), ("dense", "bfloat16", 4),
-                                   ("pointwise", "float32", 1)):
+                                   ("pointwise", "float32", 1), ("global", "bfloat16", 4)):
             s, e, sc = paths[path][dtype]
             engine = GenPose2(s.cfg, score=pose_weights(s), energy=pose_weights(e),
                               scale=sc.model.state_dict(), device=dev)
@@ -1078,8 +1244,11 @@ def main():
                                                plain=True)
                     p_plain = engine.score_agent.sample_candidates(
                         out["batch"], repeat_num=Kf, T0=T0f, num_steps=engine.num_steps,
-                        features=(out["features"], None), prior=prior, plain=True)
+                        features=(out["features"], out["rgb_features"]), prior=prior,
+                        plain=True)
                     f_err = rel_err(out["features"], plain["features"])
+                    if plain["rgb_features"] is not None:
+                        f_err = max(f_err, rel_err(out["rgb_features"], plain["rgb_features"]))
                     p_err = max_err(out["candidates"], p_plain)
                     # the request phase's bounds
                     f_tol, p_tol = (2e-4, 5e-4) if dtype == "float32" else (5e-2, 2e-2)
@@ -1119,7 +1288,8 @@ def main():
     def timing():
         per_stage = {}
         dtyped = ("fused_sa_stage", "fused_rk4", "relpe_attention", "vit_attention",
-                  "fused_sa_scale", "fused_group_mlp_pool")
+                  "fused_sa_scale", "fused_group_mlp_pool", "layernorm", "vit_attention_unpadded",
+                  "vit_attention_rope")
         launches = {}
         for req in per_request + per_frame:
             for k, v in req["counts"].items():
@@ -1314,12 +1484,75 @@ def main():
                   ms, pms, 3 * B * Np * vit_dim * esize + B * Np * vit_dim * 4,
                   {dtype: 4 * scores * hd, "float32": 5 * scores} if dtype != "float32"
                   else {"float32": 4 * scores * hd + 5 * scores}, lms)
+
+        # the ViT's switch kernels, one launch each. LayerNorm of the stream
+        # (64, 272, 384): 8 operations per element; library: F.layer_norm in
+        # the stream's dtype
+        for dtype in ("float32", "bfloat16"):
+            sfx = "" if dtype == "float32" else ".bf16"
+            x, sc, bi = ln_vit_in[dtype]
+            ms = cuda_ms(lambda: fast_layernorm(x, sc, bi), 50)
+            pms = cuda_ms(lambda: fast_layernorm_plain(x, sc, bi), 10)
+            lms = cuda_ms(lambda: F.layer_norm(x, x.shape[-1:], sc.to(x.dtype), bi.to(x.dtype),
+                                               LN_EPS), 50)
+            entry("layernorm" + sfx, csrc + "layernorm.cu", "genpose2_tpu/ops/layernorm.py:154",
+                  ms, pms, 2 * x.numel() * x.element_size() + 2 * sc.numel() * 4,
+                  {"float32": 8 * x.numel()}, lms)
+        # the attention on the unpadded 261 tokens and the in-kernel RoPE
+        # attention on the padded axis; operations as the padded kernel's,
+        # RoPE adds 6 per q and k element and the two tables; library:
+        # scaled_dot_product_attention on the 261 real tokens, head-major
+        # (for RoPE after the elementwise rotation in the input dtype)
+        hd = vit_dim // vit_heads
+
+        def heads(t):
+            return t[:, :n_valid].reshape(B, n_valid, vit_heads, hd).transpose(1, 2).contiguous()
+
+        for dtype in ("float32", "bfloat16"):
+            sfx = "" if dtype == "float32" else ".bf16"
+            q, k, v = unpadded_in[dtype]
+            qh, kh, vh = heads(q), heads(k), heads(v)
+            esize = q.element_size()
+            scores = B * vit_heads * n_valid * n_valid
+            ops = ({dtype: 4 * scores * hd, "float32": 5 * scores} if dtype != "float32"
+                   else {"float32": 4 * scores * hd + 5 * scores})
+            ms = cuda_ms(lambda: vit_attention(q, k, v, vit_heads), 20)
+            pms = cuda_ms(lambda: vit_attention_plain(q, k, v, vit_heads), 5)
+            lms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
+            entry("vit_attention_unpadded" + sfx, csrc + "vit_attention.cu",
+                  "genpose2_tpu/ops/vit_attention.py:107", ms, pms,
+                  3 * B * n_valid * vit_dim * esize + B * n_valid * vit_dim * 4, ops, lms)
+
+            q, k, v = vit_in[dtype]
+            sn, cs = rope_in[dtype]
+            Np = q.shape[1]
+            qh, kh, vh = heads(q), heads(k), heads(v)
+            sn_h, cs_h = sn[:n_valid].to(q.dtype), cs[:n_valid].to(q.dtype)
+
+            def rope_sdpa():
+                def rot(t):
+                    return t * cs_h + torch.cat([-t[..., hd // 2:], t[..., :hd // 2]], -1) * sn_h
+                return F.scaled_dot_product_attention(rot(qh), rot(kh), vh)
+
+            scores = B * vit_heads * Np * Np
+            rope_ops = 6 * 2 * B * Np * vit_dim
+            ops = ({dtype: 4 * scores * hd, "float32": 5 * scores + rope_ops}
+                   if dtype != "float32" else {"float32": 4 * scores * hd + 5 * scores + rope_ops})
+            ms = cuda_ms(lambda: vit_attention_tm(q, k, v, vit_heads, n_valid, sin=sn, cos=cs), 20)
+            pms = cuda_ms(lambda: vit_attention_tm_plain(q, k, v, vit_heads, n_valid, sin=sn,
+                                                         cos=cs), 5)
+            lms = cuda_ms(rope_sdpa, 20)
+            entry("vit_attention_rope" + sfx, csrc + "vit_attention.cu",
+                  "genpose2_tpu/ops/vit_attention.py:203", ms, pms,
+                  3 * B * Np * vit_dim * esize + B * Np * vit_dim * 4 + 2 * Np * hd * 4, ops, lms)
         emit({"phase": "timing", "ok": True, "per_stage_ms": per_stage,
               "request_ms": [{"path": r["path"], "dtype": r["dtype"], "ms": r["ms"]}
                              for r in per_request],
               "note": "ms of fused_sa_stage and relpe_attention entries: the four stage launches "
                       "of one encoder forward; fused_sa_scale and fused_group_mlp_pool: the two "
-                      "scale launches of the dense stage 0; residual_layernorm: its eight "
+                      "scale launches of the dense stage 0; library_ms of vit_attention_rope: "
+                      "the elementwise rotation of q and k, then SDPA; residual_layernorm: its "
+                      "eight "
                       "launches; ball_query: the eight launches of one training step; "
                       "launches: summed over the requests, the frame calls and the counted "
                       "train steps"})
@@ -1353,6 +1586,8 @@ def main():
 
         raw, prior = new_request("pointwise", "bfloat16")
         profiled("request pointwise bfloat16", lambda: serve("pointwise", "bfloat16", raw, prior))
+        graw, gprior = new_request("global", "bfloat16")
+        profiled("request global bfloat16", lambda: serve("global", "bfloat16", graw, gprior))
         for path in ("pointwise", "dense"):  # a bf16 tracking call's device part
             if (path, "bfloat16") in frame_runs:
                 engine, fraw, fprev = frame_runs[(path, "bfloat16")]

@@ -100,11 +100,13 @@ class GenPose2:
                     prior: Optional[torch.Tensor] = None,
                     energy_t: Optional[torch.Tensor] = None, plain: bool = False) -> dict:
         """The device part of a call on the front end's batch. Returns
-        ``batch`` (on the device), ``features``, ``candidates`` (n, K, D),
-        ``energy``, ``aggregate`` and ``lengths``. Randomness: the sampler's
-        prior (n * K, D) and the detection-mode energy times (n * K, 1) come
-        from ``generator`` (seed 0 when None) unless ``prior`` / ``energy_t``
-        give them. ``plain`` runs the plain versions of every kernel."""
+        ``batch`` (on the device), ``features`` (the score encoder's),
+        ``rgb_features`` (dino='global': the global rgb feature, else None),
+        ``candidates`` (n, K, D), ``energy``, ``aggregate`` and ``lengths``.
+        Randomness: the sampler's prior (n * K, D) and the detection-mode
+        energy times (n * K, 1) come from ``generator`` (seed 0 when None)
+        unless ``prior`` / ``energy_t`` give them. ``plain`` runs the plain
+        versions of every kernel."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         batch = process_batch(raw, self.cfg.model.pose_mode, self.device)
@@ -132,8 +134,8 @@ class GenPose2:
             lengths = self.scale_agent.predict(feats[0], agg["rotation"])
         else:
             lengths = analytic_bbox_lengths(batch["pts"], agg["rotation"], agg["translation"])
-        return {"batch": batch, "features": feats[0], "candidates": poses, "energy": energy,
-                "aggregate": agg, "lengths": lengths}
+        return {"batch": batch, "features": feats[0], "rgb_features": feats[1],
+                "candidates": poses, "energy": energy, "aggregate": agg, "lengths": lengths}
 
     def inference(self, frame: dict, prev_pose: Optional[torch.Tensor] = None,
                   tracking: bool = False, generator: Optional[torch.Generator] = None,

@@ -12,13 +12,14 @@ from genpose2_tpu_torch.models.scorenet import _PoseTrunk
 class PoseEnergyNet(_PoseTrunk):
     def __init__(self, marginal_std_fn, pose_dim: int = 9, regression_head: str = "Rx_Ry_and_T",
                  pts_dim: int = 1024, energy_mode: str = "IP", s_theta_mode: str = "score",
-                 norm_energy: str = "identical"):
-        super().__init__(marginal_std_fn, pose_dim, regression_head, pts_dim)
+                 norm_energy: str = "identical", rgb_dim: int = 0):
+        super().__init__(marginal_std_fn, pose_dim, regression_head, pts_dim, rgb_dim)
         self.energy_mode, self.s_theta_mode, self.norm_energy = energy_mode, s_theta_mode, norm_energy
 
-    def forward(self, pts_feat, sampled_pose, t, decoupled_rt: bool = True):
-        """Energy (B, 2) [rot, trans] when decoupled, else (B,)."""
-        f_theta = self.raw_heads(pts_feat, sampled_pose, t)
+    def forward(self, pts_feat, sampled_pose, t, decoupled_rt: bool = True, rgb_feat=None):
+        """Energy (B, 2) [rot, trans] when decoupled, else (B,); rgb_feat
+        (B, rgb_dim) with dino='global'."""
+        f_theta = self.raw_heads(pts_feat, sampled_pose, t, rgb_feat)
         std = self.marginal_std_fn(t)
         if self.s_theta_mode == "score":
             s_theta = f_theta / std

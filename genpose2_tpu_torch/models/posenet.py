@@ -1,10 +1,17 @@
 """Composition root: point encoder (+ DINO fusion) + score or energy net (port
 of genpose2_tpu/models/posenet.py:GFObjectPose, for ``pts_encoder='pointnet2'``
-with ``dino='none'`` or ``dino='pointwise'``).
+with ``dino='none'``, ``'pointwise'`` or ``'global'``).
+
+With dino='global' the point encoder is ``PointNet2ClsMSG`` on the cloud
+alone, run in its module form (the JAX package's route for that mode), and
+the heads also take the global rgb feature: the backbone's class token
+concatenated with ``encode_axes(roi_center_dir)``, ``dino_dim +
+global_embedding_dim`` wide.
 
 State dict layout (reference): ``pts_encoder.*`` and ``pose_score_net.*``
-(for both agent types), plus ``img_encoder.*`` with ``dino='pointwise'``. The
-frozen backbone is not part of it: the agent owns it
+(for both agent types), plus ``img_encoder.*`` with ``dino='pointwise'`` (a
+global model holds none: the JAX package creates its parameters only where
+the module runs). The frozen backbone is not part of it: the agent owns it
 (models/provider.py).
 """
 
@@ -21,15 +28,16 @@ from genpose2_tpu_torch.models.fast_encoder import fast_cls_forward, fast_fus_fo
 from genpose2_tpu_torch.models.img_encoder import ImgEncoder
 from genpose2_tpu_torch.models.pointnet2 import PointNet2ClsMSG, PointNet2ClsMSGFus
 from genpose2_tpu_torch.models.scorenet import PoseScoreNet
+from genpose2_tpu_torch.so3.rotations import encode_axes
 
 
 class GFObjectPose(nn.Module):
     def __init__(self, cfg: ModelConfig, marginal_std_fn: Callable, agent_type: str = "score"):
         super().__init__()
-        if cfg.dino not in ("none", "pointwise") or cfg.pts_encoder != "pointnet2":
+        if cfg.dino not in ("none", "pointwise", "global") or cfg.pts_encoder != "pointnet2":
             raise NotImplementedError(
                 f"dino={cfg.dino!r}, pts_encoder={cfg.pts_encoder!r}: the port serves only "
-                "dino='none' or 'pointwise' with pts_encoder='pointnet2' so far (see ROADMAP.md)")
+                "pts_encoder='pointnet2' so far (see ROADMAP.md)")
         self.cfg = cfg
         self.agent_type = agent_type
         if cfg.dino == "pointwise":
@@ -39,12 +47,13 @@ class GFObjectPose(nn.Module):
             self.pts_encoder = PointNet2ClsMSGFus(cfg.pointnet2, cfg.dino_dim)
         else:
             self.pts_encoder = PointNet2ClsMSG(cfg.pointnet2)
+        rgb_dim = cfg.dino_dim + cfg.global_embedding_dim if cfg.dino == "global" else 0
         args = (marginal_std_fn, cfg.pose_dim, cfg.regression_head, self.pts_encoder.out_channels)
         if agent_type == "score":
-            self.pose_score_net = PoseScoreNet(*args)
+            self.pose_score_net = PoseScoreNet(*args, rgb_dim=rgb_dim)
         elif agent_type == "energy":
             self.pose_score_net = PoseEnergyNet(*args, cfg.energy_mode, cfg.s_theta_mode,
-                                                cfg.norm_energy)
+                                                cfg.norm_energy, rgb_dim=rgb_dim)
         else:
             raise NotImplementedError(agent_type)
 
@@ -70,7 +79,8 @@ class GFObjectPose(nn.Module):
         """pts (B, N, 3) (+ the tapped ViT layers and each point's pixel with
         dino='pointwise') -> (B, C_final).
 
-        Eval: the fast encoder, without gradients. ``train``: the encoder's
+        Eval: the fast encoder, without gradients (dino='global': the
+        encoder's module forward in eval form). ``train``: the encoder's
         module forward with autograd, its noise and dropout drawn from
         ``generator``; the per-point DINO feature is computed without
         gradients (the JAX package's stop_gradient), so the ImgEncoder gets
@@ -83,23 +93,33 @@ class GFObjectPose(nn.Module):
             inp = pts.float()
         if train:
             return self.pts_encoder(inp, True, generator, plain)
+        if self.cfg.dino == "global":
+            with torch.no_grad():
+                return self.pts_encoder(inp, False, plain=plain)
         fast = fast_fus_forward if self.cfg.dino == "pointwise" else fast_cls_forward
         with torch.no_grad():
             return fast(self.pts_encoder, inp, self.cfg.pointnet2, plain=plain)
 
-    def score(self, pts_feat, sampled_pose, t):
+    def extract_global_rgb_feature(self, dino_global: torch.Tensor,
+                                   roi_center_dir: torch.Tensor) -> torch.Tensor:
+        """dino='global': the class token (B, dino_dim) and the crop centre's
+        view direction (B, 3), encoded -> (B, dino_dim + global_embedding_dim)."""
+        emb = encode_axes(roi_center_dir.float(), self.cfg.global_embedding_dim // 6)
+        return torch.cat([dino_global.float(), emb], dim=-1)
+
+    def score(self, pts_feat, sampled_pose, t, rgb_feat=None):
         assert self.agent_type == "score"
-        return self.pose_score_net(pts_feat, sampled_pose, t)
+        return self.pose_score_net(pts_feat, sampled_pose, t, rgb_feat)
 
-    def energy(self, pts_feat, sampled_pose, t, decoupled_rt: bool = True):
+    def energy(self, pts_feat, sampled_pose, t, decoupled_rt: bool = True, rgb_feat=None):
         assert self.agent_type == "energy"
-        return self.pose_score_net(pts_feat, sampled_pose, t, decoupled_rt)
+        return self.pose_score_net(pts_feat, sampled_pose, t, decoupled_rt, rgb_feat)
 
-    def energy_score(self, pts_feat, sampled_pose, t):
+    def energy_score(self, pts_feat, sampled_pose, t, rgb_feat=None):
         """The energy net's score, d sum(E(p, decoupled_rt=False)) / dp, kept
         differentiable (create_graph) for the DSM loss that trains it
         (genpose2_tpu/training/agent.py:464-475)."""
         with torch.enable_grad():
             p = sampled_pose.detach().requires_grad_(True)
-            e = self.energy(pts_feat, p, t, decoupled_rt=False).sum()
+            e = self.energy(pts_feat, p, t, decoupled_rt=False, rgb_feat=rgb_feat).sum()
             return torch.autograd.grad(e, p, create_graph=True)[0]

@@ -5,11 +5,13 @@ State dict layout (reference): ``t_encoder.0.W`` (Fourier weights),
 ``fusion_tail_rot_x`` / ``fusion_tail_rot_y`` / ``fusion_tail_trans``
 (``Rx_Ry_and_T``), ``fusion_tail_rot`` / ``fusion_tail_trans`` (``R_and_T``)
 or ``fusion_tail`` (``RT``), each ``.{0,2}``. All output layers start at zero.
+With dino='global' the heads' first layers take ``rgb_dim`` more inputs, the
+global rgb feature, after [pts, t, pose] (the JAX package's concat order).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -28,16 +30,16 @@ class _PoseTrunk(nn.Module):
     the energy nets."""
 
     def __init__(self, marginal_std_fn: Callable, pose_dim: int = 9,
-                 regression_head: str = "Rx_Ry_and_T", pts_dim: int = 1024):
+                 regression_head: str = "Rx_Ry_and_T", pts_dim: int = 1024, rgb_dim: int = 0):
         super().__init__()
         if regression_head not in HEADS:
             raise NotImplementedError(regression_head)
         self.marginal_std_fn = marginal_std_fn
-        self.pose_dim, self.regression_head = pose_dim, regression_head
+        self.pose_dim, self.regression_head, self.rgb_dim = pose_dim, regression_head, rgb_dim
         self.t_encoder = nn.Sequential(GaussianFourierProjection(128), nn.Linear(128, 128),
                                        nn.ReLU())
         self.pose_encoder = MLP(pose_dim, (256, 256), final_act=True)
-        total = pts_dim + 128 + 256
+        total = pts_dim + 128 + 256 + rgb_dim
         hidden = 512 if regression_head == "RT" else 256
         for name, out in HEADS[regression_head]:
             out = pose_dim if out is None else (pose_dim + out if out < 0 else out)
@@ -46,25 +48,30 @@ class _PoseTrunk(nn.Module):
     def head_names(self):
         return [name for name, _ in HEADS[self.regression_head]]
 
-    def raw_heads(self, pts_feat, sampled_pose, t):
-        total_feat = torch.cat([pts_feat, self.t_encoder(t[:, 0]),
-                                self.pose_encoder(sampled_pose)], dim=-1)
+    def raw_heads(self, pts_feat, sampled_pose, t, rgb_feat=None):
+        parts = [pts_feat, self.t_encoder(t[:, 0]), self.pose_encoder(sampled_pose)]
+        if self.rgb_dim:
+            parts.append(rgb_feat)
+        total_feat = torch.cat(parts, dim=-1)
         return torch.cat([getattr(self, n)(total_feat) for n in self.head_names()], dim=-1)
 
 
 class PoseScoreNet(_PoseTrunk):
-    def forward(self, pts_feat, sampled_pose, t):
-        """pts_feat (B, F), sampled_pose (B, D), t (B, 1) -> score (B, D)."""
-        out = self.raw_heads(pts_feat, sampled_pose, t)
+    def forward(self, pts_feat, sampled_pose, t, rgb_feat=None):
+        """pts_feat (B, F), sampled_pose (B, D), t (B, 1) (rgb_feat (B,
+        rgb_dim) with dino='global') -> score (B, D)."""
+        out = self.raw_heads(pts_feat, sampled_pose, t, rgb_feat)
         return out / (self.marginal_std_fn(t) + 1e-7)
 
 
-def fast_score_weights(net: _PoseTrunk, pts_feat: torch.Tensor) -> dict:
+def fast_score_weights(net: _PoseTrunk, pts_feat: torch.Tensor,
+                       rgb_feat: Optional[torch.Tensor] = None) -> dict:
     """Fold a score net into the layout of the fast score function
     (ops/ode_rk4.py:fast_score) and the fused RK4 kernel: heads' first
     layers side by side, second layers block diagonal, and the loop-invariant
-    pts part of the first layer precomputed into ``static`` (R, H1). Weights
-    are (in, out), as the JAX package keeps them."""
+    pts (and, with dino='global', rgb) part of the first layer precomputed
+    into ``static`` (R, H1). Weights are (in, out), as the JAX package keeps
+    them."""
     heads = [getattr(net, n) for n in net.head_names()]
     W1 = torch.cat([h[0].weight.t() for h in heads], dim=1)
     b1 = torch.cat([h[0].bias for h in heads])
@@ -72,7 +79,10 @@ def fast_score_weights(net: _PoseTrunk, pts_feat: torch.Tensor) -> dict:
     b2cat = torch.cat([h[2].bias for h in heads])
     F = pts_feat.shape[-1]
     dyn_dim = 128 + 256
-    static = pts_feat @ W1[:F] + b1
+    static = pts_feat @ W1[:F]
+    if rgb_feat is not None:
+        static = static + rgb_feat @ W1[F + dyn_dim:]
+    static = static + b1
     W1_dyn = W1[F:F + dyn_dim]
     lin = net.t_encoder[1]
     pe = net.pose_encoder

@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 # the launch_counts entry of each kernel wrapper
 KERNELS = ("fps", "ball_count", "fused_sa_stage", "fused_rk4", "residual_layernorm",
            "add_layernorm", "relpe_attention", "vit_attention", "ball_query", "fused_sa_scale",
-           "fused_group_mlp_pool")
+           "fused_group_mlp_pool", "layernorm", "vit_attention_unpadded", "vit_attention_rope")
 
 launch_counts: collections.Counter = collections.Counter()
 

@@ -1,20 +1,23 @@
-// Residual add + LayerNorm over rows, two entry points:
+// LayerNorm over rows, with or without a residual add, three entry points:
 //   gp2_residual_ln: ln = LN(x + h)
 //   gp2_add_ln:      x2 = x + gamma * h, ln = LN(x2)
+//   gp2_ln:          ln = LN(x)
 //
 // Replaces: genpose2_tpu/ops/layernorm.py:fast_residual_layernorm
-// (_residual_ln_kernel) and fast_add_layernorm (_add_ln_kernel), row tiles of
-// a (B*N, D) array in VMEM.
+// (_residual_ln_kernel), fast_add_layernorm (_add_ln_kernel) and
+// fast_layernorm (_ln_kernel), row tiles of a (B*N, D) array in VMEM.
 //
 // Semantics: the sum is taken in float32 (x + h*gamma, each operation rounded
-// on its own), mean and variance are float32 over that unrounded sum (two
-// passes over registers: mean, then the mean of squared deviations), eps as
+// on its own; gp2_ln takes x as it is), mean and variance are float32 over
+// that unrounded sum (two passes over registers: mean, then the mean of
+// squared deviations), eps as
 // given (1e-6, flax's default), y = (s - mu) * rsqrt(var + eps) * scale + bias.
 // x2 and ln are written in the input type T (bf16 rounds only at the write).
 //
 // What bounds it on this card: bytes. Each row is read once and written once
 // or twice; the arithmetic is a few operations per element. At the ViT shape
-// (64 x 272 rows of 384 bf16) add_ln moves 53 MB.
+// (64 x 272 rows of 384 bf16) add_ln moves 53 MB, ln 26.7 MB (0.008 ms at
+// 3.35 TB/s).
 //
 // Design: one warp per row, 8 rows per 256-thread block. A lane holds the
 // elements lane, lane+32, ... of its row in registers (VPT of them, D <= 32 *
@@ -42,9 +45,12 @@ ln_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __restr
     const int c = lane + 32 * k;
     v[k] = 0.f;
     if (c < D) {
-      float hv = to_f32(h[base + c]);
-      if (gamma != nullptr) hv = __fmul_rn(hv, gamma[c]);
-      v[k] = __fadd_rn(to_f32(x[base + c]), hv);
+      v[k] = to_f32(x[base + c]);
+      if (h != nullptr) {
+        float hv = to_f32(h[base + c]);
+        if (gamma != nullptr) hv = __fmul_rn(hv, gamma[c]);
+        v[k] = __fadd_rn(v[k], hv);
+      }
       sum += v[k];
     }
   }
@@ -118,4 +124,11 @@ extern "C" int gp2_add_ln(const void* x, const void* h, const float* gamma, cons
                           const float* bias, void* x2, void* ln, int rows, int D, float eps,
                           int bf16, void* stream) {
   return dispatch(x, h, gamma, scale, bias, x2, ln, rows, D, eps, bf16, stream);
+}
+
+// ln = LN(x): x, ln (rows, D) in float32 (bf16 = 0) or bfloat16 (bf16 = 1);
+// scale, bias (D,) float32. D <= 1024. Returns a CUDA error code.
+extern "C" int gp2_ln(const void* x, const float* scale, const float* bias, void* ln, int rows,
+                      int D, float eps, int bf16, void* stream) {
+  return dispatch(x, nullptr, nullptr, scale, bias, nullptr, ln, rows, D, eps, bf16, stream);
 }

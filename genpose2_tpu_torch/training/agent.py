@@ -11,12 +11,13 @@ by autograd, the global-norm clip and Adam or SGD step, the EMA update. A
 step whose loss is not finite changes nothing but the step counter: no
 parameter, optimizer state, BatchNorm statistic or EMA entry.
 
-Each agent owns its network (``.model``) and, with dino='pointwise', its
-frozen backbone (``.provider.vit``) on its device; weights come in through
-``agent.model.load_state_dict`` / ``agent.provider.vit.load_state_dict`` in
-the reference layouts (genpose2_tpu_torch/weights.py turns the JAX package's
-variables into them). The device is ``cuda`` unless the caller passes one;
-without a card and without a device the agents raise.
+Each agent owns its network (``.model``) and, with dino='pointwise' or
+'global', its frozen backbone (``.provider.vit``) on its device; weights
+come in through ``agent.model.load_state_dict`` /
+``agent.provider.vit.load_state_dict`` in the reference layouts
+(genpose2_tpu_torch/weights.py turns the JAX package's variables into them).
+The device is ``cuda`` unless the caller passes one; without a card and
+without a device the agents raise.
 """
 
 from __future__ import annotations
@@ -144,6 +145,9 @@ class PoseAgent(_Trainable):
         that order, unless ``draws`` gives the DSM draws ``t`` (R, B, 1) and
         ``z`` (R, B, D) and the ranking times ``rank_t`` (B * K, 1). ``plain``
         runs the plain versions of the kernels."""
+        if self.cfg.model.dino == "global":
+            raise NotImplementedError("training with dino='global' is not ported yet "
+                                      "(see ROADMAP.md)")
         dev = self.device
         draws = draws or {}
         batch = self.with_image_features(batch, plain)
@@ -206,7 +210,7 @@ class PoseAgent(_Trainable):
                   generator: Optional[torch.Generator] = None, plain: bool = False):
         """The point feature of a batch whose image features are attached."""
         pts = batch["pts"].to(self.device, torch.float32)
-        if self.cfg.model.dino == "none":
+        if self.cfg.model.dino != "pointwise":
             return self.model.extract_pts_feature(pts, plain=plain, train=train,
                                                   generator=generator)
         layers = [t.to(self.device, torch.float32) for t in batch["dino_layers"]]
@@ -215,20 +219,33 @@ class PoseAgent(_Trainable):
                                               generator=generator)
 
     def with_image_features(self, batch: dict, plain: bool = False) -> dict:
-        """The batch with ``dino_layers`` computed from ``roi_rgb`` (B, S, S, 3)
-        by the backbone, unless it carries them already (then the backbone does
-        not run). ``plain`` runs the plain versions of the backbone's kernels."""
-        if self.provider is None or "dino_layers" in batch or "roi_rgb" not in batch:
+        """The batch with the backbone's features computed from ``roi_rgb``
+        (B, S, S, 3): ``dino_layers`` (dino='pointwise') or ``dino_global``
+        (dino='global'), unless it carries them already (then the backbone
+        does not run). ``plain`` runs the plain versions of the backbone's
+        kernels."""
+        key = "dino_global" if self.cfg.model.dino == "global" else "dino_layers"
+        if self.provider is None or key in batch or "roi_rgb" not in batch:
             return batch
+        if key == "dino_global":
+            return dict(batch, dino_global=self.provider.global_feature(batch["roi_rgb"], plain))
         return dict(batch, dino_layers=self.provider.patch_features(batch["roi_rgb"], plain))
 
     @torch.no_grad()
     def extract_features(self, batch: dict, plain: bool = False):
-        """batch['pts'] (B, N, 3) -> (pts_feat (B, C_final), rgb_feat None).
-        With dino='pointwise' the batch also carries ``roi_xs``/``roi_ys``
-        (B, N) and ``dino_layers`` or ``roi_rgb`` (see with_image_features).
+        """batch['pts'] (B, N, 3) -> (pts_feat (B, C_final), rgb_feat). With
+        dino='pointwise' the batch also carries ``roi_xs``/``roi_ys`` (B, N)
+        and ``dino_layers`` or ``roi_rgb``; with dino='global'
+        ``roi_center_dir`` (B, 3) and ``dino_global`` or ``roi_rgb`` (see
+        with_image_features), and rgb_feat is the global rgb feature (B,
+        dino_dim + global_embedding_dim); otherwise rgb_feat is None.
         ``plain`` runs the plain versions of the kernels."""
-        return self._features(self.with_image_features(batch, plain), plain=plain), None
+        batch = self.with_image_features(batch, plain)
+        rgb_feat = None
+        if self.cfg.model.dino == "global":
+            rgb_feat = self.model.extract_global_rgb_feature(
+                batch["dino_global"].to(self.device), batch["roi_center_dir"].to(self.device))
+        return self._features(batch, plain=plain), rgb_feat
 
     @torch.no_grad()
     def sample_candidates(self, batch: dict, repeat_num: int = 50, T0: float = 1.0,
@@ -239,16 +256,18 @@ class PoseAgent(_Trainable):
                           plain: bool = False) -> torch.Tensor:
         """``repeat_num`` pose candidates per object, (B, K, D), camera frame.
 
-        ``features`` (pts_feat, None) from ``extract_features`` skips the
+        ``features`` (pts_feat, rgb_feat) from ``extract_features`` skips the
         encoder. ``prior`` (B * K, D) is the start noise; when None it is
         drawn with ``generator``. ``init_x`` (B, D) or (B, K, D), zero-mean,
         warm-starts the integration (tracking): the prior is added to it.
         With cfg.sampler.fused_fixed the integration is one fused RK4 launch,
         otherwise (or with ``plain``) the per-step loop."""
         assert self.agent_type == "score"
-        pts_feat, _ = features if features is not None else self.extract_features(batch, plain)
+        pts_feat, rgb_feat = (features if features is not None
+                              else self.extract_features(batch, plain))
         B, K, D = pts_feat.shape[0], repeat_num, self.cfg.model.pose_dim
         feat_rep = pts_feat.repeat_interleave(K, dim=0)
+        rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, dim=0)
         net = self.model.pose_score_net
         dtype = self.cfg.model.score_dtype
         center = batch.get("pts_center")
@@ -256,7 +275,7 @@ class PoseAgent(_Trainable):
         if init_x is not None:
             init_x = init_x.to(self.device)
             init_x = init_x.repeat_interleave(K, 0) if init_x.ndim == 2 else init_x.reshape(B * K, D)
-        w = fast_score_weights(net, feat_rep)
+        w = fast_score_weights(net, feat_rep, rgb_rep)
 
         def score(x, t):
             return fast_score(w, x, t, net.marginal_std_fn, dtype)
@@ -281,7 +300,8 @@ class PoseAgent(_Trainable):
         U[1e-5, 1e-4) with ``generator``, unless ``t`` (B * K, 1) gives them.
         ``plain`` runs the plain versions of the encoder's kernels."""
         assert self.agent_type == "energy"
-        pts_feat, _ = features if features is not None else self.extract_features(batch, plain)
+        pts_feat, rgb_feat = (features if features is not None
+                              else self.extract_features(batch, plain))
         B, K, D = poses.shape
         poses = poses.to(self.device).clone()
         center = batch.get("pts_center")
@@ -295,7 +315,8 @@ class PoseAgent(_Trainable):
             t = torch.rand((B * K, 1), generator=generator, device=self.device) * (hi - lo) + lo
         else:
             t = torch.full((B * K, 1), fixed_t, dtype=flat.dtype, device=self.device)
-        energy = self.model.energy(pts_feat.repeat_interleave(K, 0), flat, t, True)
+        rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, 0)
+        energy = self.model.energy(pts_feat.repeat_interleave(K, 0), flat, t, True, rgb_rep)
         return energy.reshape(B, K, 2)
 
 

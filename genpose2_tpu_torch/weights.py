@@ -8,8 +8,9 @@ of genpose2_tpu/training/torch_ingest.py:convert_posenet_state_dict /
 convert_scalenet_state_dict (Dense kernel (in, out) -> Linear weight
 (out, in); SharedMLP Dense -> 1x1 conv (out, in, 1, 1); BatchNorm scale/bias
 + mean/var -> weight/bias + running_mean/running_var). ``dinov3_state_dict``
-is the inverse of genpose2_tpu/models/vit.py:load_dinov3_state_dict for the
-frozen backbone, which the agent owns apart from GFObjectPose.
+and ``dinov2_state_dict`` are the inverses of genpose2_tpu/models/vit.py:
+load_dinov3_state_dict and load_torch_state_dict for the frozen backbone,
+which the agent owns apart from GFObjectPose.
 """
 
 from __future__ import annotations
@@ -147,16 +148,17 @@ def _pose_head(d: StateDict, params, constants, regression_head: str, prefix: st
 
 
 def posenet_state_dict(variables: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """GFObjectPose (score or energy, dino='none' or 'pointwise', pointnet2)
-    variables -> the port's GFObjectPose state dict."""
-    if cfg.dino not in ("none", "pointwise") or cfg.pts_encoder != "pointnet2":
-        raise NotImplementedError(
-            "only dino='none' or 'pointwise' with pts_encoder='pointnet2' is ported")
+    """GFObjectPose (score or energy, dino='none', 'pointwise' or 'global',
+    pointnet2) variables -> the port's GFObjectPose state dict. ``img_encoder.*``
+    comes along where the tree holds it (dino='pointwise'; a global model's
+    tree has none)."""
+    if cfg.dino not in ("none", "pointwise", "global") or cfg.pts_encoder != "pointnet2":
+        raise NotImplementedError("only pts_encoder='pointnet2' is ported")
     d = StateDict()
     params, stats = variables["params"], variables.get("batch_stats", {})
     encoder = _pointnet2_fus if cfg.dino == "pointwise" else _pointnet2_cls
     encoder(d, params["pts_encoder"], stats["pts_encoder"], cfg.pointnet2, "pts_encoder.")
-    if cfg.dino == "pointwise":
+    if "img_encoder" in params:
         img_encoder(d, params["img_encoder"], "img_encoder")
     _pose_head(d, params["pose_net"], variables["constants"]["pose_net"], cfg.regression_head,
                "pose_score_net.")
@@ -168,11 +170,22 @@ def dinov3_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     dict that models/vit.py:DinoV3ViT loads; the inverse of
     genpose2_tpu/models/vit.py:load_dinov3_state_dict (SwiGLU as separate
     w1/w2/w3, ``ls*.gamma``, ``rope_embed.periods``)."""
-    d = StateDict()
     p = variables["params"]
+    d = StateDict()
     d.sd["cls_token"] = _t(p["cls_token"])
     d.sd["storage_tokens"] = _t(p["storage_tokens"])
     d.sd["rope_embed.periods"] = _t(variables["constants"]["rope_periods"])
+    for blk, key in _vit_common(d, p):
+        d.linear(blk["attn"]["qkv"], f"{key}.attn.qkv")
+        d.linear(blk["attn"]["proj"], f"{key}.attn.proj")
+        for w in ("w1", "w2", "w3"):
+            d.linear(blk[f"mlp_{w}"], f"{key}.mlp.{w}")
+    return d.sd
+
+
+def _vit_common(d: StateDict, p: dict):
+    """The entries both ViTs share (patch embedding, final norm, each block's
+    norms and layer scales); yields (block params, state-dict prefix)."""
     # (p, p, 3, dim) -> (dim, 3, p, p)
     d.sd["patch_embed.proj.weight"] = _t(p["patch_embed"]["kernel"]).permute(3, 2, 0, 1).contiguous()
     d.sd["patch_embed.proj.bias"] = _t(p["patch_embed"]["bias"])
@@ -182,12 +195,34 @@ def dinov3_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
         blk, key = p[f"block_{i}"], f"blocks.{i}"
         d.layernorm(blk["norm1"], f"{key}.norm1")
         d.layernorm(blk["norm2"], f"{key}.norm2")
-        d.linear(blk["attn"]["qkv"], f"{key}.attn.qkv")
-        d.linear(blk["attn"]["proj"], f"{key}.attn.proj")
         d.sd[f"{key}.ls1.gamma"] = _t(blk["ls1"])
         d.sd[f"{key}.ls2.gamma"] = _t(blk["ls2"])
-        for w in ("w1", "w2", "w3"):
-            d.linear(blk[f"mlp_{w}"], f"{key}.mlp.{w}")
+        yield blk, key
+
+
+def dinov2_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
+    """ViT (DINOv2-style) variables ({'params'}) -> the DINOv2 torch state
+    dict that models/vit.py:ViT loads; the inverse of
+    genpose2_tpu/models/vit.py:load_torch_state_dict (flax attention's
+    query/key/value kernels (dim, H, hd) stacked into ``attn.qkv``, ``out``
+    (H, hd, dim) into ``attn.proj``)."""
+    p = variables["params"]
+    d = StateDict()
+    for name in ("cls_token", "pos_embed", "register_tokens"):
+        if name in p:
+            d.sd[name] = _t(p[name])
+    for blk, key in _vit_common(d, p):
+        attn = blk["attn"]
+        dim = attn["out"]["bias"].shape[0]
+        d.sd[f"{key}.attn.qkv.weight"] = torch.cat(
+            [_t(attn[n]["kernel"]).reshape(dim, -1).t() for n in ("query", "key", "value")])
+        d.sd[f"{key}.attn.qkv.bias"] = torch.cat(
+            [_t(attn[n]["bias"]).reshape(-1) for n in ("query", "key", "value")])
+        proj = _t(attn["out"]["kernel"]).reshape(-1, dim)  # (H, hd, dim) -> (in, out)
+        d.sd[f"{key}.attn.proj.weight"] = proj.t().contiguous()
+        d.sd[f"{key}.attn.proj.bias"] = _t(attn["out"]["bias"])
+        d.linear(blk["mlp_fc1"], f"{key}.mlp.fc1")
+        d.linear(blk["mlp_fc2"], f"{key}.mlp.fc2")
     return d.sd
 
 

@@ -397,10 +397,20 @@ def test_backbone_skipped_when_batch_carries_layers(flagship, monkeypatch):
     assert calls == []
 
 
-def test_global_mode_still_raises():
-    cfg = _model_cfg(tiny_flagship_config(), dino="global")
-    with pytest.raises(NotImplementedError):
-        PoseAgent(cfg, "score", device="cpu")
+@pytest.mark.parametrize("lacks", ["global_train_step", "pointnet_encoder"])
+def test_port_refuses_what_it_lacks(lacks):
+    """Training with dino='global' and the PointNet encoder are not ported:
+    the port raises, naming ROADMAP.md, rather than running something else."""
+    if lacks == "pointnet_encoder":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PoseAgent(_model_cfg(tiny_flagship_config(), pts_encoder="pointnet"), "score",
+                      device="cpu")
+        return
+    agent = PoseAgent(_model_cfg(tiny_flagship_config(), dino="global"), "score", device="cpu")
+    _, pbatch = _batches()
+    batch = dict(pbatch, zero_mean_gt_pose=torch.zeros(B, 9), roi_center_dir=torch.ones(B, 3))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        agent.train_step(agent.init_state(), batch)
 
 
 # ----------------------------------------------------------------- weights

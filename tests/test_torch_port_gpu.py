@@ -10,10 +10,13 @@ Discrete outputs (FPS indices, ball counts) must match exactly; float outputs
 to the tolerance stated at each assert.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import genpose2_tpu_torch.models.vit as port_vit
 from genpose2_tpu_torch.api import GenPose2
 from genpose2_tpu_torch.config import tiny_flagship_config, tiny_test_config
 from genpose2_tpu_torch.data import synthetic_frame
@@ -27,12 +30,16 @@ from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
 from genpose2_tpu_torch.ops.fused_sa import (fused_group_mlp_pool, fused_group_mlp_pool_plain,
                                              fused_sa_scale, fused_sa_scale_plain, fused_sa_stage,
                                              fused_sa_stage_plain)
+from genpose2_tpu_torch.models.provider import ImageFeatureProvider
+from genpose2_tpu_torch.models.vit import rope_tables
 from genpose2_tpu_torch.ops.layernorm import (fast_add_layernorm, fast_add_layernorm_plain,
+                                              fast_layernorm, fast_layernorm_plain,
                                               fast_residual_layernorm,
                                               fast_residual_layernorm_plain)
 from genpose2_tpu_torch.ops.ode_rk4 import fused_rk4_integrate, fused_rk4_plain
 from genpose2_tpu_torch.ops.relpe_attention import relpe_attention, relpe_attention_plain
-from genpose2_tpu_torch.ops.vit_attention import vit_attention_tm, vit_attention_tm_plain
+from genpose2_tpu_torch.ops.vit_attention import (vit_attention, vit_attention_plain,
+                                                  vit_attention_tm, vit_attention_tm_plain)
 from genpose2_tpu_torch.training.agent import PoseAgent
 
 pytestmark = pytest.mark.gpu
@@ -253,6 +260,86 @@ def test_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, H):
     assert bool(torch.isfinite(got).all())
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [48, 384, 1024])
+def test_fast_layernorm_kernel_matches_plain(card, bf16, D):
+    g = torch.Generator().manual_seed(29)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    x = _normal(g, (3, 37, D), card, dt) * 3.0 + 1.0
+    scale, bias = (_normal(g, (D,), card) for _ in range(2))
+    before = _cuda.launch_counts["layernorm"]
+    got = fast_layernorm(x, scale, bias)
+    assert _cuda.launch_counts["layernorm"] == before + 1 and got.dtype == dt
+    # as the other LayerNorm kernels: float32 statistics in another order
+    tol = 2e-2 if bf16 else 1e-5
+    torch.testing.assert_close(got, fast_layernorm_plain(x, scale, bias), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("N,n_valid,C", [(261, 261, 384), (40, 33, 48), (5, 5, 48), (1, 1, 48)])
+def test_unpadded_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, C):
+    g = torch.Generator().manual_seed(30)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (_normal(g, (3, N, C), card, dt) for _ in range(3))
+    before = _cuda.launch_counts["vit_attention_unpadded"]
+    got = vit_attention(q, k, v, 6, n_valid=n_valid)
+    assert _cuda.launch_counts["vit_attention_unpadded"] == before + 1
+    # the JAX package's bounds (tests/test_ops.py:546, 566); every row is real
+    tol = 2e-2 if bf16 else 1e-5
+    torch.testing.assert_close(got, vit_attention_plain(q, k, v, 6, n_valid=n_valid), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("N,n_valid,C", [(272, 261, 384), (264, 261, 384), (32, 21, 48)])
+def test_rope_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, C):
+    g = torch.Generator().manual_seed(31)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    hd, grid = C // 6, int(round((n_valid - 5) ** 0.5))
+    periods = 100.0 ** (torch.arange(hd // 4, dtype=torch.float32) / (hd // 4))
+    sin, cos = rope_tables(periods, grid, grid)
+    sin = torch.cat([torch.zeros(5, hd), sin, torch.zeros(N - n_valid, hd)]).to(card)
+    cos = torch.cat([torch.ones(5, hd), cos, torch.ones(N - n_valid, hd)]).to(card)
+    q, k, v = (_normal(g, (3, N, C), card, dt) for _ in range(3))
+    before = _cuda.launch_counts["vit_attention_rope"]
+    got = vit_attention_tm(q, k, v, 6, n_valid=n_valid, sin=sin, cos=cos)
+    assert _cuda.launch_counts["vit_attention_rope"] == before + 1
+    want = vit_attention_tm_plain(q, k, v, 6, n_valid=n_valid, sin=sin, cos=cos)
+    # the rope=False kernel's bounds: the rotation is the same float32
+    # arithmetic (no FMA) on both sides and rounds to the input dtype once
+    tol = 2e-2 if bf16 else 1e-5
+    torch.testing.assert_close(got[:, :n_valid], want[:, :n_valid], rtol=tol, atol=tol)
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_switched_vit_on_card_matches_cpu(card, dtype, monkeypatch):
+    """tiny_flagship_config's backbone with both switches on: the in-kernel
+    RoPE attention, fast_layernorm and the deferred tails on the card against
+    the plain versions on the CPU."""
+    monkeypatch.setattr(port_vit, "_INKERNEL_ROPE", True)
+    monkeypatch.setattr(port_vit, "_DEFER_TAIL", True)
+    cfg = dataclasses.replace(tiny_flagship_config().model, backbone_dtype=dtype)
+    torch.manual_seed(32)
+    cpu = ImageFeatureProvider(cfg)
+    _randomize(cpu.vit, 33)
+    gpu = ImageFeatureProvider(cfg)
+    gpu.vit.load_state_dict(cpu.vit.state_dict())
+    gpu.vit.to(card)
+    rgb = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(34))
+    before = dict(_cuda.launch_counts)
+    got = gpu.global_feature(rgb.to(card))
+    want = cpu.global_feature(rgb)
+    launched = {k: _cuda.launch_counts[k] - before.get(k, 0)
+                for k in ("vit_attention_rope", "layernorm", "add_layernorm", "vit_attention")}
+    bf16 = dtype == "bfloat16"
+    assert launched == {"vit_attention_rope": 2, "layernorm": int(bf16),
+                        "add_layernorm": 3 if bf16 else 0, "vit_attention": 0}
+    # float32: summation order through two blocks; bf16: flipped roundings
+    tol = 5e-2 if bf16 else 1e-4
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
 def test_tiny_serving_path_on_card_matches_cpu(card):
     """Score agent at tiny_test_config: the kernels on the card against the
     plain versions on the CPU, with the same weights and the same prior."""
@@ -345,3 +432,33 @@ def _weights(agent):
     sd = dict(agent.model.state_dict())
     sd.update({f"dino.{k}": v for k, v in agent.provider.vit.state_dict().items()})
     return sd
+
+
+@pytest.mark.parametrize("backbone", ["dinov3_vits16plus", "dinov2_vits16"])
+def test_tiny_global_frame_on_card_matches_cpu(card, backbone):
+    """GenPose2 with dino='global' at tiny_flagship_config on one synthetic
+    frame: the kernels on the card against the plain versions on the CPU."""
+    base = tiny_flagship_config()
+    cfg = base.replace(model=dataclasses.replace(base.model, dino="global", backbone=backbone))
+    torch.manual_seed(35)
+    cpu = GenPose2(cfg, energy=True, scale=True, num_steps=8, device="cpu")
+    for agent in (cpu.score_agent, cpu.energy_agent):
+        _randomize(agent.model, 36)
+        _randomize(agent.provider.vit, 37)
+    _randomize(cpu.scale_agent.model, 38)
+    gpu = GenPose2(cfg, score=_weights(cpu.score_agent), energy=_weights(cpu.energy_agent),
+                   scale=cpu.scale_agent.model.state_dict(), num_steps=8, device=card)
+    rng = np.random.default_rng(39)
+    objs = synthetic_frame.random_scene(rng, 3, 160, 120, 150.0, depth=(0.5, 0.8))
+    raw = cpu.front_end(synthetic_frame.render(rng, objs, 160, 120, 150.0))
+    n, K = len(raw["mask_ids"]), cfg.eval.eval_repeat_num
+    g = torch.Generator().manual_seed(40)
+    prior = torch.randn(n * K, 9, generator=g) * 0.3
+    t = torch.rand(n * K, 1, generator=g) * 9e-5 + 1e-5
+    a = cpu.serve_batch(raw, prior=prior, energy_t=t)
+    b = gpu.serve_batch(raw, prior=prior, energy_t=t)
+    # the slice's bounds: features 2e-4 (the class token 1e-4, the backbone's),
+    # candidates the fused RK4's 5e-4
+    torch.testing.assert_close(b["rgb_features"].cpu(), a["rgb_features"], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(b["features"].cpu(), a["features"], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(b["candidates"].cpu(), a["candidates"], rtol=1e-4, atol=5e-4)
