@@ -66,7 +66,9 @@ Phases, one JSON line each:
             ScaleAgent step, and a score step at TrainConfig.batch_size;
   timing    CUDA-event times of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the main
-            paths' shapes, with the bound from this run's shapes and data;
+            paths' shapes, with the bound from this run's shapes and data; the
+            three ViT attention entries also at a frame call's batch (12
+            objects), beside SDPA at the same batch;
   profile   torch.profiler device time by kernel name over one bf16 flagship
             request, one bf16 dino='global' request, one flagship train step
             and the device part of one bf16 tracking call of each frame
@@ -1300,13 +1302,13 @@ def main():
                 key = f"{k}.bf16" if k == "vit_attention" else k
                 launches[key] = launches.get(key, 0) + v
 
-        def entry(name, source, replaces, ms, plain_ms, nbytes, ops, library_ms=None):
+        def entry(name, source, replaces, ms, plain_ms, nbytes, ops, library_ms=None, **extra):
             b, by = bound_ms(nbytes, ops)
             r = results.get(name, {})
             table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                           "launches": launches.get(name, 0), "max_abs_err": r.get("max_abs_err"),
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                          "library_ms": library_ms})
+                          "library_ms": library_ms, **extra})
 
         csrc = "genpose2_tpu_torch/ops/csrc/"
         ms = cuda_ms(lambda: furthest_point_sample(pts0, 512), 20)
@@ -1462,28 +1464,79 @@ def main():
         entry("add_layernorm", csrc + "layernorm.cu", "genpose2_tpu/ops/layernorm.py:79",
               ms, pms, 4 * x.numel() * 2 + 3 * g.numel() * 4, {"float32": 11 * x.numel()}, lms)
 
-        # ViT attention: one launch; library: scaled_dot_product_attention over
-        # the n_valid real tokens, head-major
+        # the three ViT attention entries, one launch each, at the request's
+        # B=64 and at a frame call's B=12 (N_OBJ, the first objects of the same
+        # inputs): the padded axis (rope=False and RoPE) and the unpadded
+        # 261 tokens. Operations: 4 per score element per head-dim column (the
+        # two products) in the input type, 5 per score element (scale, mask,
+        # max, exp, sum) in float32; RoPE adds 6 per q and k element and the
+        # two tables. Library: scaled_dot_product_attention on the 261 real
+        # tokens, head-major (for RoPE after the elementwise rotation in the
+        # input dtype)
+        hd = vit_dim // vit_heads
+
+        def vit_timing(dtype, Bt, run, plain, library, n_tok, rope):
+            esize = 2 if dtype == "bfloat16" else 4
+            scores = Bt * vit_heads * n_tok * n_tok
+            rope_ops = 6 * 2 * Bt * n_tok * vit_dim if rope else 0
+            ops = ({dtype: 4 * scores * hd, "float32": 5 * scores + rope_ops}
+                   if dtype != "float32" else {"float32": 4 * scores * hd + 5 * scores + rope_ops})
+            nbytes = (3 * Bt * n_tok * vit_dim * esize + Bt * n_tok * vit_dim * 4
+                      + (2 * n_tok * hd * 4 if rope else 0))
+            ms, lms = cuda_ms(run, 20), cuda_ms(library, 20)
+            pms = cuda_ms(plain, 5) if plain is not None else None
+            return ms, pms, lms, nbytes, ops
+
+        def heads(t):
+            Bt = t.shape[0]
+            return t[:, :n_valid].reshape(Bt, n_valid, vit_heads, hd).transpose(1, 2).contiguous()
+
         for dtype in ("float32", "bfloat16"):
-            name = "vit_attention" if dtype == "float32" else "vit_attention.bf16"
-            q, k, v = vit_in[dtype]
-            Np = q.shape[1]
-            esize = q.element_size()
-            hd = vit_dim // vit_heads
+            sfx = "" if dtype == "float32" else ".bf16"
+            for name, rope in (("vit_attention", False), ("vit_attention_unpadded", False),
+                               ("vit_attention_rope", True)):
+                measured = {}
+                for Bt in (B, N_OBJ):
+                    src = unpadded_in[dtype] if name == "vit_attention_unpadded" else vit_in[dtype]
+                    q, k, v = (t[:Bt].contiguous() for t in src)
+                    qh, kh, vh = heads(q), heads(k), heads(v)
+                    sn, cs = rope_in[dtype]
+                    n_tok = q.shape[1]
+                    if name == "vit_attention_unpadded":
+                        def run(q=q, k=k, v=v):
+                            return vit_attention(q, k, v, vit_heads)
 
-            def heads(t):
-                return t[:, :n_valid].reshape(B, n_valid, vit_heads, hd).transpose(1, 2) \
-                    .contiguous()
+                        def plain(q=q, k=k, v=v):
+                            return vit_attention_plain(q, k, v, vit_heads)
+                    else:
+                        tab = {"sin": sn, "cos": cs} if rope else {}
 
-            qh, kh, vh = heads(q), heads(k), heads(v)
-            ms = cuda_ms(lambda: vit_attention_tm(q, k, v, vit_heads, n_valid), 20)
-            pms = cuda_ms(lambda: vit_attention_tm_plain(q, k, v, vit_heads, n_valid), 5)
-            lms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
-            scores = B * vit_heads * Np * Np
-            entry(name, csrc + "vit_attention.cu", "genpose2_tpu/ops/vit_attention.py:203",
-                  ms, pms, 3 * B * Np * vit_dim * esize + B * Np * vit_dim * 4,
-                  {dtype: 4 * scores * hd, "float32": 5 * scores} if dtype != "float32"
-                  else {"float32": 4 * scores * hd + 5 * scores}, lms)
+                        def run(q=q, k=k, v=v, tab=tab):
+                            return vit_attention_tm(q, k, v, vit_heads, n_valid, **tab)
+
+                        def plain(q=q, k=k, v=v, tab=tab):
+                            return vit_attention_tm_plain(q, k, v, vit_heads, n_valid, **tab)
+                    if rope:
+                        sn_h, cs_h = sn[:n_valid].to(q.dtype), cs[:n_valid].to(q.dtype)
+
+                        def library(qh=qh, kh=kh, vh=vh, sn_h=sn_h, cs_h=cs_h):
+                            def rot(t):
+                                return t * cs_h + torch.cat([-t[..., hd // 2:], t[..., :hd // 2]],
+                                                            -1) * sn_h
+                            return F.scaled_dot_product_attention(rot(qh), rot(kh), vh)
+                    else:
+                        def library(qh=qh, kh=kh, vh=vh):
+                            return F.scaled_dot_product_attention(qh, kh, vh)
+                    measured[Bt] = vit_timing(dtype, Bt, run,
+                                              plain if Bt == B else None, library, n_tok, rope)
+                ms, pms, lms, nbytes, ops = measured[B]
+                ms12, _, lms12, nbytes12, ops12 = measured[N_OBJ]
+                b12, _ = bound_ms(nbytes12, ops12)
+                line = "107" if name == "vit_attention_unpadded" else "203"
+                entry(name + sfx, csrc + "vit_attention.cu",
+                      "genpose2_tpu/ops/vit_attention.py:" + line, ms, pms, nbytes, ops, lms,
+                      frame_batch={"B": N_OBJ, "ms": ms12, "library_ms": lms12,
+                                   "bound_ms": b12})
 
         # the ViT's switch kernels, one launch each. LayerNorm of the stream
         # (64, 272, 384): 8 operations per element; library: F.layer_norm in
@@ -1498,60 +1551,15 @@ def main():
             entry("layernorm" + sfx, csrc + "layernorm.cu", "genpose2_tpu/ops/layernorm.py:154",
                   ms, pms, 2 * x.numel() * x.element_size() + 2 * sc.numel() * 4,
                   {"float32": 8 * x.numel()}, lms)
-        # the attention on the unpadded 261 tokens and the in-kernel RoPE
-        # attention on the padded axis; operations as the padded kernel's,
-        # RoPE adds 6 per q and k element and the two tables; library:
-        # scaled_dot_product_attention on the 261 real tokens, head-major
-        # (for RoPE after the elementwise rotation in the input dtype)
-        hd = vit_dim // vit_heads
-
-        def heads(t):
-            return t[:, :n_valid].reshape(B, n_valid, vit_heads, hd).transpose(1, 2).contiguous()
-
-        for dtype in ("float32", "bfloat16"):
-            sfx = "" if dtype == "float32" else ".bf16"
-            q, k, v = unpadded_in[dtype]
-            qh, kh, vh = heads(q), heads(k), heads(v)
-            esize = q.element_size()
-            scores = B * vit_heads * n_valid * n_valid
-            ops = ({dtype: 4 * scores * hd, "float32": 5 * scores} if dtype != "float32"
-                   else {"float32": 4 * scores * hd + 5 * scores})
-            ms = cuda_ms(lambda: vit_attention(q, k, v, vit_heads), 20)
-            pms = cuda_ms(lambda: vit_attention_plain(q, k, v, vit_heads), 5)
-            lms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
-            entry("vit_attention_unpadded" + sfx, csrc + "vit_attention.cu",
-                  "genpose2_tpu/ops/vit_attention.py:107", ms, pms,
-                  3 * B * n_valid * vit_dim * esize + B * n_valid * vit_dim * 4, ops, lms)
-
-            q, k, v = vit_in[dtype]
-            sn, cs = rope_in[dtype]
-            Np = q.shape[1]
-            qh, kh, vh = heads(q), heads(k), heads(v)
-            sn_h, cs_h = sn[:n_valid].to(q.dtype), cs[:n_valid].to(q.dtype)
-
-            def rope_sdpa():
-                def rot(t):
-                    return t * cs_h + torch.cat([-t[..., hd // 2:], t[..., :hd // 2]], -1) * sn_h
-                return F.scaled_dot_product_attention(rot(qh), rot(kh), vh)
-
-            scores = B * vit_heads * Np * Np
-            rope_ops = 6 * 2 * B * Np * vit_dim
-            ops = ({dtype: 4 * scores * hd, "float32": 5 * scores + rope_ops}
-                   if dtype != "float32" else {"float32": 4 * scores * hd + 5 * scores + rope_ops})
-            ms = cuda_ms(lambda: vit_attention_tm(q, k, v, vit_heads, n_valid, sin=sn, cos=cs), 20)
-            pms = cuda_ms(lambda: vit_attention_tm_plain(q, k, v, vit_heads, n_valid, sin=sn,
-                                                         cos=cs), 5)
-            lms = cuda_ms(rope_sdpa, 20)
-            entry("vit_attention_rope" + sfx, csrc + "vit_attention.cu",
-                  "genpose2_tpu/ops/vit_attention.py:203", ms, pms,
-                  3 * B * Np * vit_dim * esize + B * Np * vit_dim * 4 + 2 * Np * hd * 4, ops, lms)
         emit({"phase": "timing", "ok": True, "per_stage_ms": per_stage,
               "request_ms": [{"path": r["path"], "dtype": r["dtype"], "ms": r["ms"]}
                              for r in per_request],
               "note": "ms of fused_sa_stage and relpe_attention entries: the four stage launches "
                       "of one encoder forward; fused_sa_scale and fused_group_mlp_pool: the two "
                       "scale launches of the dense stage 0; library_ms of vit_attention_rope: "
-                      "the elementwise rotation of q and k, then SDPA; residual_layernorm: its "
+                      "the elementwise rotation of q and k, then SDPA; the ViT attention "
+                      "entries' frame_batch: the same launch at a frame call's batch; "
+                      "residual_layernorm: its "
                       "eight "
                       "launches; ball_query: the eight launches of one training step; "
                       "launches: summed over the requests, the frame calls and the counted "

@@ -12,14 +12,21 @@ cloud's extent along the estimated axes when there is no scale agent).
     result = engine.inference(frame)                                 # detection
     result = engine.inference(frame, prev_pose=result["prev_pose"], tracking=True)
 
-Weights are the port's state dicts (``weights.py`` makes them from the JAX
-package's variables; published reference ``.pth`` files have the same
-layout, the frozen backbone under ``dino.``), or paths to ``torch.save``
-files of them. The agents run on the card unless ``device`` says otherwise.
+Weights are state dicts in the reference torch layout, bare or wrapped as
+the reference saves them (``{'model_state_dict': sd, ...}``), or paths to
+``torch.save`` files of either: ``weights.py`` makes them from the JAX
+package's variables, and a published reference ``.pth`` loads as it is.
+``dino.*`` entries go to the frozen backbone (with a warning when the agent
+has none); entries the port does not build (the reference Fus encoder's
+GroupAll-stage ``relative_pos_encoders`` and its fusions' ``downsample``,
+both dead in the reference; ``img_encoder`` in a ``dino='global'`` model)
+are dropped and named in one warning; a missing entry raises. The agents run
+on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Union
 
 import numpy as np
@@ -43,14 +50,38 @@ def _state_dict(weights: Weights) -> Optional[dict]:
     return None if weights is True else weights
 
 
+def _load_exact(module: torch.nn.Module, state_dict: dict, what: str) -> None:
+    """Load exactly the entries ``module`` holds: a missing one raises, the
+    ones it does not build are dropped and named in one warning."""
+    own = module.state_dict().keys()
+    missing = [k for k in own if k not in state_dict]
+    if missing:
+        raise KeyError(f"{what}: the state dict lacks {len(missing)} entries: "
+                       f"{', '.join(missing)}")
+    extra = sorted(k for k in state_dict if k not in own)
+    if extra:
+        warnings.warn(f"{what}: dropped {len(extra)} entries the port does not build: "
+                      f"{', '.join(extra)}", stacklevel=3)
+    module.load_state_dict({k: state_dict[k] for k in own})
+
+
 def load_pose_weights(agent: PoseAgent, state_dict: dict) -> None:
-    """A GFObjectPose state dict into the agent: ``dino.*`` entries into the
-    frozen backbone, the rest into the model."""
+    """A GFObjectPose state dict (bare or wrapped) into the agent: ``dino.*``
+    entries into the frozen backbone, the rest into the model."""
+    state_dict = state_dict.get("model_state_dict", state_dict)
     dino = {k[len(DINO_PREFIX):]: v for k, v in state_dict.items() if k.startswith(DINO_PREFIX)}
-    agent.model.load_state_dict({k: v for k, v in state_dict.items()
-                                 if not k.startswith(DINO_PREFIX)})
-    if dino:
+    _load_exact(agent.model, {k: v for k, v in state_dict.items()
+                              if not k.startswith(DINO_PREFIX)}, "GFObjectPose")
+    if dino and agent.provider is None:
+        warnings.warn(f"the state dict embeds {len(dino)} DINO backbone tensors but the agent "
+                      "has no backbone: backbone weights not loaded", stacklevel=2)
+    elif dino:
         agent.provider.vit.load_state_dict(dino)
+
+
+def load_scale_weights(agent: ScaleAgent, state_dict: dict) -> None:
+    """A ScaleNet state dict (bare or wrapped) into the agent."""
+    _load_exact(agent.model, state_dict.get("model_state_dict", state_dict), "ScaleNet")
 
 
 class GenPose2:
@@ -80,7 +111,7 @@ class GenPose2:
             self.scale_agent = ScaleAgent(self.cfg, pts_dim=pts_dim, device=self.device)
             sd = _state_dict(scale)
             if sd is not None:
-                self.scale_agent.model.load_state_dict(sd)
+                load_scale_weights(self.scale_agent, sd)
 
     @staticmethod
     def _load(agent: PoseAgent, weights: Weights) -> None:

@@ -1,5 +1,5 @@
-// One head of softmax attention for a tile of TQ queries, in shared memory.
-// Shared by relpe_attention.cu and vit_attention.cu.
+// One head of softmax attention for a tile of TQ queries, in shared memory
+// (relpe_attention.cu).
 //
 // Layouts (all in shared memory):
 //   qt  [D][TQ]     float  the query tile, d-major (float4 broadcasts)

@@ -19,12 +19,16 @@ values the caller slices off.
   head-major and pads N for Mosaic; the result is the same function.
 
 Each launches its entry of ``csrc/vit_attention.cu`` on CUDA tensors and runs
-its ``_plain`` version on CPU tensors.
+its ``_plain`` version on CPU tensors. The kernel holds one head's K and V in
+shared memory, so a launch takes at most ``vit_attention_max_tokens(D,
+dtype)`` tokens (at head dim 64: 896 in bf16, 416 in float32); past that, and
+for a head dim above 128, the wrapper raises a ValueError.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -65,6 +69,32 @@ def vit_attention_plain(q, k, v, num_heads: int, n_valid: Optional[int] = None):
     return vit_attention_tm_plain(q, k, v, num_heads, n_valid)
 
 
+@functools.lru_cache(maxsize=None)
+def _max_tokens(device_index: int, head_dim: int, bf16: int) -> int:
+    lib = _cuda.library("vit_attention")
+    lib.gp2_vit_attention_max_tokens.argtypes = [ctypes.c_int, ctypes.c_int]
+    with torch.cuda.device(device_index):
+        return lib.gp2_vit_attention_max_tokens(head_dim, bf16)
+
+
+def vit_attention_max_tokens(head_dim: int, dtype: torch.dtype, device=None) -> int:
+    """The most tokens one launch of the kernel takes on the card (the current
+    one when ``device`` is None) at this head dim and dtype (0: the head dim
+    is not supported)."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return _max_tokens(index if index is not None else torch.cuda.current_device(), head_dim,
+                       int(dtype == torch.bfloat16))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, n_tables: int):
+    fn = getattr(_cuda.library("vit_attention"), name)
+    fn.argtypes = [ctypes.c_void_p] * (4 + n_tables) + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _vit_attention_cuda(entry, key, q, k, v, num_heads, n_valid, tables=()):
     B, N, C = q.shape
     dev = q.device
@@ -75,16 +105,19 @@ def _vit_attention_cuda(entry, key, q, k, v, num_heads, n_valid, tables=()):
         _cuda.require(t, name, q.dtype, (B, N, C), dev)
     for name, t in zip(("sin", "cos"), tables):
         _cuda.require(t, name, torch.float32, (N, C // num_heads), dev)
+    D = C // num_heads
+    limit = vit_attention_max_tokens(D, q.dtype, dev)
+    if limit == 0:
+        raise ValueError(f"head dim {D}: the kernel takes head dims up to 128")
+    if N > limit:
+        raise ValueError(f"{N} tokens: the kernel holds a head's K and V in shared memory, "
+                         f"at most {limit} tokens at head dim {D} in {q.dtype}")
     out = torch.empty((B, N, C), dtype=torch.float32, device=dev)
-    lib = _cuda.library("vit_attention")
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * (4 + len(tables)) + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry(entry, len(tables))
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in tables),
-              out.data_ptr(), B, N, C, num_heads, n_valid, 1.0 / math.sqrt(C // num_heads),
+              out.data_ptr(), B, N, C, num_heads, n_valid, 1.0 / math.sqrt(D),
               int(q.dtype == torch.bfloat16), _cuda.stream_ptr(q))
-    _cuda.check(lib, code, key)
+    _cuda.check(_cuda.library("vit_attention"), code, key)
     _cuda.launch_counts[key] += 1
     return out
 

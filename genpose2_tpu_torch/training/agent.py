@@ -16,12 +16,15 @@ Each agent owns its network (``.model``) and, with dino='pointwise' or
 come in through ``agent.model.load_state_dict`` /
 ``agent.provider.vit.load_state_dict`` in the reference layouts
 (genpose2_tpu_torch/weights.py turns the JAX package's variables into them).
+The inference methods run the model's weights, or, given a train state, its
+EMA weights (``use_ema=True``, the JAX package's default) or its live ones.
 The device is ``cuda`` unless the caller passes one; without a card and
 without a device the agents raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -66,6 +69,27 @@ class TrainState:
 class _Trainable:
     """Train state and update shared by the agents: ``model``, ``optimizer``
     and ``cfg`` are the agent's."""
+
+    @contextlib.contextmanager
+    def weights(self, state: Optional[TrainState] = None, use_ema: bool = True):
+        """Inside the block the model runs ``state.ema_params`` in place of
+        its parameters when a state is given and ``use_ema`` is set; the live
+        values come back afterwards, also on an exception. Without a state,
+        or with ``use_ema=False`` (``state.params`` are the model's own
+        tensors), nothing changes."""
+        if state is None or not use_ema:
+            yield
+            return
+        live = {k: p.detach().clone() for k, p in state.params.items()}
+        try:
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(state.ema_params[k])
+            yield
+        finally:
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(live[k])
 
     def init_state(self) -> TrainState:
         """A train state over the model's current weights."""
@@ -232,20 +256,23 @@ class PoseAgent(_Trainable):
         return dict(batch, dino_layers=self.provider.patch_features(batch["roi_rgb"], plain))
 
     @torch.no_grad()
-    def extract_features(self, batch: dict, plain: bool = False):
+    def extract_features(self, batch: dict, plain: bool = False,
+                         state: Optional[TrainState] = None, use_ema: bool = True):
         """batch['pts'] (B, N, 3) -> (pts_feat (B, C_final), rgb_feat). With
         dino='pointwise' the batch also carries ``roi_xs``/``roi_ys`` (B, N)
         and ``dino_layers`` or ``roi_rgb``; with dino='global'
         ``roi_center_dir`` (B, 3) and ``dino_global`` or ``roi_rgb`` (see
         with_image_features), and rgb_feat is the global rgb feature (B,
         dino_dim + global_embedding_dim); otherwise rgb_feat is None.
-        ``plain`` runs the plain versions of the kernels."""
+        ``plain`` runs the plain versions of the kernels; ``state`` and
+        ``use_ema`` pick the weights (see ``weights``)."""
         batch = self.with_image_features(batch, plain)
-        rgb_feat = None
-        if self.cfg.model.dino == "global":
-            rgb_feat = self.model.extract_global_rgb_feature(
-                batch["dino_global"].to(self.device), batch["roi_center_dir"].to(self.device))
-        return self._features(batch, plain=plain), rgb_feat
+        with self.weights(state, use_ema):
+            rgb_feat = None
+            if self.cfg.model.dino == "global":
+                rgb_feat = self.model.extract_global_rgb_feature(
+                    batch["dino_global"].to(self.device), batch["roi_center_dir"].to(self.device))
+            return self._features(batch, plain=plain), rgb_feat
 
     @torch.no_grad()
     def sample_candidates(self, batch: dict, repeat_num: int = 50, T0: float = 1.0,
@@ -253,7 +280,8 @@ class PoseAgent(_Trainable):
                           num_steps: int = 500, features=None,
                           generator: Optional[torch.Generator] = None,
                           prior: Optional[torch.Tensor] = None,
-                          plain: bool = False) -> torch.Tensor:
+                          plain: bool = False, state: Optional[TrainState] = None,
+                          use_ema: bool = True) -> torch.Tensor:
         """``repeat_num`` pose candidates per object, (B, K, D), camera frame.
 
         ``features`` (pts_feat, rgb_feat) from ``extract_features`` skips the
@@ -261,63 +289,70 @@ class PoseAgent(_Trainable):
         drawn with ``generator``. ``init_x`` (B, D) or (B, K, D), zero-mean,
         warm-starts the integration (tracking): the prior is added to it.
         With cfg.sampler.fused_fixed the integration is one fused RK4 launch,
-        otherwise (or with ``plain``) the per-step loop."""
+        otherwise (or with ``plain``) the per-step loop. ``state`` and
+        ``use_ema`` pick the weights of the encoder and the score net (see
+        ``weights``)."""
         assert self.agent_type == "score"
-        pts_feat, rgb_feat = (features if features is not None
-                              else self.extract_features(batch, plain))
-        B, K, D = pts_feat.shape[0], repeat_num, self.cfg.model.pose_dim
-        feat_rep = pts_feat.repeat_interleave(K, dim=0)
-        rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, dim=0)
-        net = self.model.pose_score_net
-        dtype = self.cfg.model.score_dtype
-        center = batch.get("pts_center")
-        center_rep = None if center is None else center.to(self.device).repeat_interleave(K, 0)
-        if init_x is not None:
-            init_x = init_x.to(self.device)
-            init_x = init_x.repeat_interleave(K, 0) if init_x.ndim == 2 else init_x.reshape(B * K, D)
-        w = fast_score_weights(net, feat_rep, rgb_rep)
+        with self.weights(state, use_ema):
+            pts_feat, rgb_feat = (features if features is not None
+                                  else self.extract_features(batch, plain))
+            B, K, D = pts_feat.shape[0], repeat_num, self.cfg.model.pose_dim
+            feat_rep = pts_feat.repeat_interleave(K, dim=0)
+            rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, dim=0)
+            net = self.model.pose_score_net
+            dtype = self.cfg.model.score_dtype
+            center = batch.get("pts_center")
+            center_rep = None if center is None else center.to(self.device).repeat_interleave(K, 0)
+            if init_x is not None:
+                init_x = init_x.to(self.device)
+                init_x = (init_x.repeat_interleave(K, 0) if init_x.ndim == 2
+                          else init_x.reshape(B * K, D))
+            w = fast_score_weights(net, feat_rep, rgb_rep)
 
-        def score(x, t):
-            return fast_score(w, x, t, net.marginal_std_fn, dtype)
+            def score(x, t):
+                return fast_score(w, x, t, net.marginal_std_fn, dtype)
 
-        fused = w if method == "fixed" and self.cfg.sampler.fused_fixed and not plain else None
-        poses, _ = ode_sampler(
-            score, self.sde, B * K, D,
-            T0=T0, init_x=init_x, num_steps=num_steps, pose_mode=self.cfg.model.pose_mode,
-            pts_center=center_rep, method=method, fused_weights=fused, compute_dtype=dtype,
-            prior=None if prior is None else prior.to(self.device), generator=generator,
-            device=self.device,
-        )
-        return poses.reshape(B, K, D)
+            fused = w if method == "fixed" and self.cfg.sampler.fused_fixed and not plain else None
+            poses, _ = ode_sampler(
+                score, self.sde, B * K, D,
+                T0=T0, init_x=init_x, num_steps=num_steps, pose_mode=self.cfg.model.pose_mode,
+                pts_center=center_rep, method=method, fused_weights=fused, compute_dtype=dtype,
+                prior=None if prior is None else prior.to(self.device), generator=generator,
+                device=self.device,
+            )
+            return poses.reshape(B, K, D)
 
     @torch.no_grad()
     def get_energy(self, batch: dict, poses: torch.Tensor, fixed_t: Optional[float] = 1e-5,
                    features=None, generator: Optional[torch.Generator] = None,
-                   t: Optional[torch.Tensor] = None, plain: bool = False) -> torch.Tensor:
+                   t: Optional[torch.Tensor] = None, plain: bool = False,
+                   state: Optional[TrainState] = None, use_ema: bool = True) -> torch.Tensor:
         """Energy of camera-frame candidates (B, K, D) -> (B, K, 2); the cloud
         center is subtracted first. Diffusion time: ``fixed_t`` for every row,
         or with ``fixed_t=None`` (detection mode) one draw per row from
         U[1e-5, 1e-4) with ``generator``, unless ``t`` (B * K, 1) gives them.
-        ``plain`` runs the plain versions of the encoder's kernels."""
+        ``plain`` runs the plain versions of the encoder's kernels; ``state``
+        and ``use_ema`` pick the weights (see ``weights``)."""
         assert self.agent_type == "energy"
-        pts_feat, rgb_feat = (features if features is not None
-                              else self.extract_features(batch, plain))
-        B, K, D = poses.shape
-        poses = poses.to(self.device).clone()
-        center = batch.get("pts_center")
-        if center is not None:
-            poses[..., -3:] -= center.to(self.device)[:, None, :]
-        flat = poses.reshape(B * K, D)
-        if t is not None:
-            t = t.to(self.device, flat.dtype).reshape(B * K, 1)
-        elif fixed_t is None:
-            lo, hi = RANK_T
-            t = torch.rand((B * K, 1), generator=generator, device=self.device) * (hi - lo) + lo
-        else:
-            t = torch.full((B * K, 1), fixed_t, dtype=flat.dtype, device=self.device)
-        rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, 0)
-        energy = self.model.energy(pts_feat.repeat_interleave(K, 0), flat, t, True, rgb_rep)
-        return energy.reshape(B, K, 2)
+        with self.weights(state, use_ema):
+            pts_feat, rgb_feat = (features if features is not None
+                                  else self.extract_features(batch, plain))
+            B, K, D = poses.shape
+            poses = poses.to(self.device).clone()
+            center = batch.get("pts_center")
+            if center is not None:
+                poses[..., -3:] -= center.to(self.device)[:, None, :]
+            flat = poses.reshape(B * K, D)
+            if t is not None:
+                t = t.to(self.device, flat.dtype).reshape(B * K, 1)
+            elif fixed_t is None:
+                lo, hi = RANK_T
+                t = torch.rand((B * K, 1), generator=generator, device=self.device) * (hi - lo) + lo
+            else:
+                t = torch.full((B * K, 1), fixed_t, dtype=flat.dtype, device=self.device)
+            rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, 0)
+            energy = self.model.energy(pts_feat.repeat_interleave(K, 0), flat, t, True, rgb_rep)
+            return energy.reshape(B, K, 2)
 
 
 class ScaleAgent(_Trainable):

@@ -13,7 +13,7 @@ energy agent's warm start from a score checkpoint, multi-device training.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Tuple
 
 import torch
 
@@ -38,12 +38,12 @@ def zero_init_energy_heads(agent: PoseAgent, state: TrainState) -> TrainState:
 
 class Trainer:
     """Epoch loop of one agent over prepared batches. ``frozen_score`` is the
-    score agent whose features the scale agent trains on; its model holds
-    the weights to use (the JAX trainer reads its EMA parameters)."""
+    (score agent, its train state) pair whose features the scale agent trains
+    on, read through the state's EMA weights as the JAX trainer reads them."""
 
     def __init__(self, cfg: Config, agent_type: Optional[str] = None,
-                 steps_per_epoch: int = 1000, frozen_score: Optional[PoseAgent] = None,
-                 device=None):
+                 steps_per_epoch: int = 1000,
+                 frozen_score: Optional[Tuple[PoseAgent, TrainState]] = None, device=None):
         self.cfg = cfg
         self.agent_type = agent_type or cfg.train.agent_type
         self.steps_per_epoch = steps_per_epoch
@@ -64,14 +64,16 @@ class Trainer:
         if self.is_scale:
             pts_dim = 1024
             if self.frozen_score is not None and sample_batch is not None:
-                pts_dim = int(self.frozen_score.extract_features(sample_batch)[0].shape[-1])
+                agent, state = self.frozen_score
+                pts_dim = int(agent.extract_features(sample_batch, state=state)[0].shape[-1])
             self.agent = ScaleAgent(self.cfg, pts_dim, self.device, self.steps_per_epoch)
         self.state = self.agent.init_state()
         return self.state
 
     def _prepare(self, batch: dict) -> dict:
         if self.is_scale:
-            feat, _ = self.frozen_score.extract_features(batch)
+            agent, state = self.frozen_score
+            feat, _ = agent.extract_features(batch, state=state)
             return {"pts_feat": feat, "axes_training": batch["axes_training"],
                     "gt_length": batch["bbox_side_len"]}
         if "zero_mean_gt_pose" not in batch:

@@ -38,8 +38,9 @@ from genpose2_tpu_torch.ops.layernorm import (fast_add_layernorm, fast_add_layer
                                               fast_residual_layernorm_plain)
 from genpose2_tpu_torch.ops.ode_rk4 import fused_rk4_integrate, fused_rk4_plain
 from genpose2_tpu_torch.ops.relpe_attention import relpe_attention, relpe_attention_plain
-from genpose2_tpu_torch.ops.vit_attention import (vit_attention, vit_attention_plain,
-                                                  vit_attention_tm, vit_attention_tm_plain)
+from genpose2_tpu_torch.ops.vit_attention import (vit_attention, vit_attention_max_tokens,
+                                                  vit_attention_plain, vit_attention_tm,
+                                                  vit_attention_tm_plain)
 from genpose2_tpu_torch.training.agent import PoseAgent
 
 pytestmark = pytest.mark.gpu
@@ -245,15 +246,23 @@ def test_relpe_attention_kernel_matches_plain(card, compute_dtype, M, C):
     torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
 
 
+# (B, N, n_valid, C) with 6 heads: C = 384 is the flagship's head dim 64,
+# C = 48 the tiny configs' head dim 8; B = 64 a request's objects, B = 12 a
+# frame call's
+VIT_PADDED = [(64, 272, 261, 384), (12, 272, 261, 384), (3, 264, 261, 384), (12, 272, 261, 48),
+              (3, 32, 21, 48), (2, 1, 1, 48), (2, 1, 1, 384)]
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("N,n_valid,H", [(272, 261, 6), (264, 261, 6), (32, 21, 6)])
-def test_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, H):
+@pytest.mark.parametrize("B,N,n_valid,C", VIT_PADDED)
+def test_vit_attention_kernel_matches_plain(card, bf16, B, N, n_valid, C):
     g = torch.Generator().manual_seed(17)
     dt = torch.bfloat16 if bf16 else torch.float32
-    C = 384 if N > 32 else 48
-    q, k, v = (_normal(g, (3, N, C), card, dt) for _ in range(3))
-    got = vit_attention_tm(q, k, v, H, n_valid=n_valid)
-    want = vit_attention_tm_plain(q, k, v, H, n_valid=n_valid)
+    q, k, v = (_normal(g, (B, N, C), card, dt) for _ in range(3))
+    before = _cuda.launch_counts["vit_attention"]
+    got = vit_attention_tm(q, k, v, 6, n_valid=n_valid)
+    assert _cuda.launch_counts["vit_attention"] == before + 1
+    want = vit_attention_tm_plain(q, k, v, 6, n_valid=n_valid)
     # the JAX package's bounds (tests/test_ops.py:546, 566), on the real rows
     tol = 2e-2 if bf16 else 1e-5
     torch.testing.assert_close(got[:, :n_valid], want[:, :n_valid], rtol=tol, atol=tol)
@@ -276,11 +285,14 @@ def test_fast_layernorm_kernel_matches_plain(card, bf16, D):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("N,n_valid,C", [(261, 261, 384), (40, 33, 48), (5, 5, 48), (1, 1, 48)])
-def test_unpadded_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, C):
+@pytest.mark.parametrize("B,N,n_valid,C", [(64, 261, 261, 384), (12, 261, 261, 384),
+                                           (3, 261, 261, 384), (12, 261, 261, 48),
+                                           (3, 40, 33, 48), (3, 5, 5, 48), (3, 1, 1, 48),
+                                           (2, 1, 1, 384)])
+def test_unpadded_vit_attention_kernel_matches_plain(card, bf16, B, N, n_valid, C):
     g = torch.Generator().manual_seed(30)
     dt = torch.bfloat16 if bf16 else torch.float32
-    q, k, v = (_normal(g, (3, N, C), card, dt) for _ in range(3))
+    q, k, v = (_normal(g, (B, N, C), card, dt) for _ in range(3))
     before = _cuda.launch_counts["vit_attention_unpadded"]
     got = vit_attention(q, k, v, 6, n_valid=n_valid)
     assert _cuda.launch_counts["vit_attention_unpadded"] == before + 1
@@ -290,17 +302,28 @@ def test_unpadded_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, C):
                                atol=tol)
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("N,n_valid,C", [(272, 261, 384), (264, 261, 384), (32, 21, 48)])
-def test_rope_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, C):
-    g = torch.Generator().manual_seed(31)
-    dt = torch.bfloat16 if bf16 else torch.float32
-    hd, grid = C // 6, int(round((n_valid - 5) ** 0.5))
+def _rope_tables(N, n_valid, hd, card):
+    """The DINOv3 tables of a square patch grid of n_valid - 5 tokens (identity
+    rows for the 5 prefix tokens and the pad rows); for a token axis without
+    such a grid, random angles."""
+    grid = int(round((n_valid - 5) ** 0.5)) if n_valid > 5 else 0
+    if grid * grid != n_valid - 5 or grid == 0:
+        ang = torch.rand((N, hd), generator=torch.Generator().manual_seed(32)) * 6.3
+        return ang.sin().to(card), ang.cos().to(card)
     periods = 100.0 ** (torch.arange(hd // 4, dtype=torch.float32) / (hd // 4))
     sin, cos = rope_tables(periods, grid, grid)
     sin = torch.cat([torch.zeros(5, hd), sin, torch.zeros(N - n_valid, hd)]).to(card)
     cos = torch.cat([torch.ones(5, hd), cos, torch.ones(N - n_valid, hd)]).to(card)
-    q, k, v = (_normal(g, (3, N, C), card, dt) for _ in range(3))
+    return sin, cos
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,N,n_valid,C", VIT_PADDED)
+def test_rope_vit_attention_kernel_matches_plain(card, bf16, B, N, n_valid, C):
+    g = torch.Generator().manual_seed(31)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    sin, cos = _rope_tables(N, n_valid, C // 6, card)
+    q, k, v = (_normal(g, (B, N, C), card, dt) for _ in range(3))
     before = _cuda.launch_counts["vit_attention_rope"]
     got = vit_attention_tm(q, k, v, 6, n_valid=n_valid, sin=sin, cos=cos)
     assert _cuda.launch_counts["vit_attention_rope"] == before + 1
@@ -310,6 +333,36 @@ def test_rope_vit_attention_kernel_matches_plain(card, bf16, N, n_valid, C):
     tol = 2e-2 if bf16 else 1e-5
     torch.testing.assert_close(got[:, :n_valid], want[:, :n_valid], rtol=tol, atol=tol)
     assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("entry", ["padded", "unpadded", "rope"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("C", [48, 384])
+def test_vit_attention_token_limit(card, entry, bf16, C):
+    """At the shared-memory limit the kernel matches its plain version; one
+    token past it the wrapper raises a ValueError that names the limit."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    limit = vit_attention_max_tokens(C // 6, dt)
+    assert limit >= 416  # the flagship's 272 tokens, and room beyond them
+    g = torch.Generator().manual_seed(33)
+    for N in (limit, limit + 1):
+        q, k, v = (_normal(g, (1, N, C), card, dt) for _ in range(3))
+        tab = dict(zip(("sin", "cos"), _rope_tables(N, N, C // 6, card))) if entry == "rope" else {}
+
+        def run(f):
+            if entry == "unpadded":
+                return f(q, k, v, 6, n_valid=N - 3)
+            return f(q, k, v, 6, n_valid=N - 3, **tab)
+
+        kern, plain = ((vit_attention, vit_attention_plain) if entry == "unpadded"
+                       else (vit_attention_tm, vit_attention_tm_plain))
+        if N > limit:
+            with pytest.raises(ValueError, match=f"at most {limit} tokens"):
+                run(kern)
+            continue
+        tol = 2e-2 if bf16 else 1e-5
+        torch.testing.assert_close(run(kern)[:, :N - 3], run(plain)[:, :N - 3], rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -2,7 +2,8 @@
 CPU: the score agent at tiny_test_config (dino='none') and at
 tiny_flagship_config (ViT, ImgEncoder, Fus PointNet++), the energy agent with
 ranking candidates, and the ScaleAgent; then the NaN guard, replay from a
-seed and the Trainer.
+seed and the Trainer; then inference through the EMA weights after JAX train
+steps (``use_ema``).
 
 Both packages start from the same weights (JAX variables randomised from a
 numpy seed, carried over by genpose2_tpu_torch/weights.py) and see the same
@@ -27,6 +28,7 @@ import torch
 
 from genpose2_tpu.config import tiny_flagship_config as jax_flagship_config
 from genpose2_tpu.config import tiny_test_config as jax_tiny_config
+from genpose2_tpu.diffusion import init_sde as jax_init_sde
 from genpose2_tpu.models.provider import PROVIDER_KEY
 from genpose2_tpu.training.agent import PoseAgent as JaxPoseAgent
 from genpose2_tpu.training.agent import ScaleAgent as JaxScaleAgent
@@ -332,7 +334,8 @@ def test_trainer_runs_score_then_scale_epochs():
     rng = np.random.default_rng(41)
     raw = [dict(b, axes_training=_t(rng.normal(size=(B, 4, 3, 3))),
                 bbox_side_len=_t(rng.uniform(0.05, 0.3, size=(B, 3)))) for b in batches]
-    scale = Trainer(cfg, "scale", steps_per_epoch=SPE, frozen_score=trainer.agent, device="cpu")
+    scale = Trainer(cfg, "scale", steps_per_epoch=SPE, frozen_score=(trainer.agent, state),
+                    device="cpu")
     scale.init(raw[0])
     width = trainer.agent.model.pts_encoder.out_channels
     assert scale.agent.model.fusion_tail_length[0].in_features == width + 256
@@ -383,3 +386,113 @@ def test_trainer_energy_with_ranking_takes_candidates():
     # candidates are drawn by candidate_metrics_for_ranking, not ported yet
     with pytest.raises(NotImplementedError):
         trainer.train_epoch([_port_batch(_batch(cfg, 62))])
+
+
+# ------------------------------------------------------------------ use_ema
+KC, STEPS_C, T0_C = 4, 8, 0.55
+
+
+def _trained_agents(agent_type, seed, steps=3):
+    """A JAX agent and its state after ``steps`` train steps from randomised
+    weights at lr 1e-2 without warmup (the EMA then lags the parameters well
+    beyond the float32 bounds), and the port's agent and train state with the
+    same parameters, EMA and BatchNorm statistics."""
+    jcfg, pcfg = jax_tiny_config(), tiny_test_config()
+    jcfg = jcfg.replace(train=dataclasses.replace(jcfg.train, lr=1e-2, warmup=1))
+    batch = _batch(pcfg, seed)
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    agent = JaxPoseAgent(jcfg, agent_type, steps_per_epoch=SPE)
+    state = jax.jit(agent.init_state)(jax.random.PRNGKey(seed), jbatch)
+    vs = randomize({"params": state.params, "batch_stats": state.batch_stats,
+                    "constants": state.constants}, seed)
+    state = state.replace(params=vs["params"], ema_params=vs["params"],
+                          batch_stats=vs["batch_stats"], constants=vs["constants"],
+                          opt_state=agent.tx.init(vs["params"]))
+    for i in range(steps):
+        state, _ = agent.train_step(state, jbatch, jax.random.PRNGKey(300 + seed + i))
+    state = jax.device_get(state)
+
+    def sd(params):
+        return posenet_state_dict({"params": params, "batch_stats": state.batch_stats,
+                                   "constants": vs["constants"]}, pcfg.model)
+
+    port = PoseAgent(pcfg, agent_type, device="cpu", steps_per_epoch=SPE)
+    port.model.load_state_dict(sd(state.params))
+    pstate = port.init_state()
+    ema = sd(state.ema_params)
+    for k, e in pstate.ema_params.items():
+        e.copy_(ema[k])
+    return {"jcfg": jcfg, "agent": agent, "state": state, "port": port, "pstate": pstate,
+            "batch": batch}
+
+
+@pytest.fixture(scope="module")
+def trained():
+    return {"score": _trained_agents("score", 70), "energy": _trained_agents("energy", 71)}
+
+
+def _live(port):
+    return {k: v.clone() for k, v in port.model.state_dict().items()}
+
+
+@pytest.mark.parametrize("use_ema", [True, False])
+def test_inference_reads_the_ema_like_jax(trained, use_ema):
+    s, e = trained["score"], trained["energy"]
+    jbatch = jax.tree.map(jnp.asarray, s["batch"])
+    pbatch = _port_batch(s["batch"])
+    live = _live(s["port"]), _live(e["port"])
+    # float32 bounds as the slice tests': the encoder's (tests/test_models.py:446)
+    want = np.asarray(s["agent"].extract_features(s["state"], jbatch, use_ema)[0])
+    got = s["port"].extract_features(pbatch, state=s["pstate"], use_ema=use_ema)[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    # candidates from the same prior: the fused RK4's bound against the scan
+    # (tests/test_ode_fused.py:112)
+    key = jax.random.PRNGKey(80)
+    prior = np.asarray(jax_init_sde(s["jcfg"].sde).prior_sample(key, (B * KC, 9), T=T0_C))
+    want_poses = np.asarray(s["agent"].sample_candidates(
+        s["state"], jbatch, key, repeat_num=KC, T0=T0_C, use_ema=use_ema, method="fixed",
+        num_steps=STEPS_C))
+    got_poses = s["port"].sample_candidates(pbatch, repeat_num=KC, T0=T0_C, num_steps=STEPS_C,
+                                            prior=_t(prior), state=s["pstate"], use_ema=use_ema)
+    np.testing.assert_allclose(got_poses.numpy(), want_poses, rtol=1e-4, atol=5e-4)
+    # energies of the same candidates at the same t: s_theta divides by
+    # std(1e-5), so float32 differences grow a hundredfold
+    want_e = np.asarray(e["agent"].get_energy(e["state"], jax.tree.map(jnp.asarray, e["batch"]),
+                                              want_poses, use_ema=use_ema, fixed_t=1e-5))
+    got_e = e["port"].get_energy(_port_batch(e["batch"]), _t(want_poses), fixed_t=1e-5,
+                                 state=e["pstate"], use_ema=use_ema)
+    np.testing.assert_allclose(got_e.numpy(), want_e, rtol=2e-4, atol=1e-3)
+    # the live weights are back
+    for agent, before in zip((s["port"], e["port"]), live):
+        assert _live(agent).keys() == before.keys()
+        assert all(torch.equal(v, before[k]) for k, v in _live(agent).items())
+
+
+def test_ema_weights_differ_and_come_back_after_an_error(trained):
+    s = trained["score"]
+    pbatch = _port_batch(s["batch"])
+    port, pstate = s["port"], s["pstate"]
+    live = _live(port)
+    ema = port.extract_features(pbatch, state=pstate)[0]
+    raw = port.extract_features(pbatch, state=pstate, use_ema=False)[0]
+    # three steps leave the EMA well apart: far beyond the bounds above
+    assert float((ema - raw).abs().max()) > 1e-2 * float(raw.abs().max())
+    # without a state the model's own (live) weights run
+    assert torch.equal(port.extract_features(pbatch)[0], raw)
+    with pytest.raises(KeyError):
+        port.extract_features({"roi_xs": pbatch["pts"]}, state=pstate)
+    assert all(torch.equal(v, live[k]) for k, v in _live(port).items())
+
+
+def test_trainer_reads_the_frozen_score_features_through_the_ema(trained):
+    s = trained["score"]
+    cfg = tiny_test_config()
+    rng = np.random.default_rng(72)
+    raw = dict(_port_batch(s["batch"]), axes_training=_t(rng.normal(size=(B, 4, 3, 3))),
+               bbox_side_len=_t(rng.uniform(0.05, 0.3, size=(B, 3))))
+    scale = Trainer(cfg, "scale", steps_per_epoch=SPE, frozen_score=(s["port"], s["pstate"]),
+                    device="cpu")
+    scale.init(raw)
+    fed = scale._prepare(raw)["pts_feat"]
+    assert torch.equal(fed, s["port"].extract_features(raw, state=s["pstate"])[0])
+    assert not torch.equal(fed, s["port"].extract_features(raw)[0])
