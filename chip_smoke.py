@@ -29,7 +29,8 @@ Phases, one JSON line each:
             at their edge cases; the ViT's switch kernels: LayerNorm at
             (64 x 272, 384), the unpadded attention at (64, 261, 384) and the
             in-kernel RoPE attention at the padded flagship shape with the
-            flagship's tables;
+            flagship's tables; RK4 also at a tracking call's shape (600 rows,
+            100 steps from T0 0.15);
   request   requests through PoseAgent / ScaleAgent at full width (B=64
             objects, 1024 points, K=50 candidates, 50 RK4 steps from T0=0.55,
             energies at t=1e-5, retain 0.4 with clustering): dino='none' once
@@ -68,7 +69,8 @@ Phases, one JSON line each:
             PyTorch call computes the same function, that call, at the main
             paths' shapes, with the bound from this run's shapes and data; the
             three ViT attention entries also at a frame call's batch (12
-            objects), beside SDPA at the same batch;
+            objects), beside SDPA at the same batch, and RK4 at a tracking
+            call's shape; float32 products bounded at 3xTF32's rate;
   profile   torch.profiler device time by kernel name over one bf16 flagship
             request, one bf16 dino='global' request, one flagship train step
             and the device part of one bf16 tracking call of each frame
@@ -93,8 +95,15 @@ import traceback
 
 SEED = 0
 B, N, K, STEPS, T0, S = 64, 1024, 50, 50, 0.55, 256
+# a tracking call's RK4: 12 objects x K candidates, 100 steps from T0 0.15
+# (api.py: GenPose2's tracking settings)
+TRACK_R, TRACK_STEPS, TRACK_T0 = 12 * K, 100, 0.15
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 outside the tensor cores; dense bf16
+# Dense peaks of one H100 SXM. float32 products: 3xTF32 on the tensor cores
+# (a third of TF32's 495 TFLOP/s) keeps float32 accuracy and beats the FMA
+# pipes; float32 work that no product covers (distance tests, bias and
+# activation glue, softmax): the 67 TFLOP/s of the FMA pipes.
+PEAK_OPS = {"float32": 67e12, "float32_mma": 495e12 / 3, "bfloat16": 989e12}
 FAILED = []
 
 
@@ -136,6 +145,11 @@ def bound_ms(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = sum(n / PEAK_OPS[dt] for dt, n in ops.items())
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mm_type(dtype):
+    """The PEAK_OPS key of a product's operations in ``dtype``."""
+    return "bfloat16" if dtype == "bfloat16" else "float32_mma"
 
 
 def max_err(a, b):
@@ -525,7 +539,7 @@ def main():
         Bn, Nn, Mn = xyz.shape[0], xyz.shape[1], nxs.shape[1]
         esize = 2 if dtype == "bfloat16" else 4
         nbytes = 12 * Bn * (Nn + Mn)
-        ops = 9 * Bn * Mn * Nn  # distance tests
+        ops, mm_ops = 9 * Bn * Mn * Nn, 0  # distance tests; the MLP products
         for s in range(len(radii)):
             h1 = projs[s].shape[-1]
             nbytes += Bn * Nn * h1 * esize + Bn * Mn * h1 * 4
@@ -533,8 +547,9 @@ def main():
             nbytes += macs * esize + sum(2 * 4 * a.numel() for a, _ in affs[s])
             c_out = wss[s][-1].shape[1] if wss[s] else h1
             nbytes += Bn * Mn * c_out * 4
-            ops += rows[s] * (2 * macs + 4 * h1)
-        return nbytes, ops
+            ops += rows[s] * 4 * h1
+            mm_ops += rows[s] * 2 * macs
+        return nbytes, {"float32": ops, mm_type(dtype): mm_ops}
 
     # the Fus encoder's grouped stages: (M, C) of the rel-PE block after each
     fus_cfg = flagship_config("float32").model.pointnet2
@@ -653,6 +668,10 @@ def main():
                       lambda: fused_group_mlp_pool_plain(p0, bad, c0, a0, w0)))
         return cases
 
+    def rk4_rows(w, rows):
+        """The folded weights of the first ``rows`` rows."""
+        return {**w, "static": w["static"][:rows].contiguous()}
+
     @phase("kernels")
     def kernels():
         # ball query at the training path's eight stage shapes and the edge
@@ -714,10 +733,19 @@ def main():
             tol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
             close = bool(torch.allclose(xk, xp, atol=tol[0], rtol=tol[1]))
             ok = ok and close and bool(torch.isfinite(xk).all())
+            # and at a tracking call's shape, to the same bounds
+            x0t, wt = x0[:TRACK_R].contiguous(), rk4_rows(w, TRACK_R)
+            xkt = fused_rk4_integrate(x0t, wt, s.sde, TRACK_T0, TRACK_STEPS, dtype)
+            xpt = fused_rk4_plain(x0t, wt, s.sde, TRACK_T0, TRACK_STEPS, dtype)
+            err_t = max_err(xkt, xpt)
+            close_t = bool(torch.allclose(xkt, xpt, atol=tol[0], rtol=tol[1]))
+            ok = ok and close_t and bool(torch.isfinite(xkt).all())
             name = "fused_rk4" if dtype == "float32" else "fused_rk4.bf16"
-            results[name] = {"max_abs_err": err, "tolerance": f"atol={tol[0]:.3g}, rtol={tol[1]}",
+            results[name] = {"max_abs_err": max(err, err_t),
+                             "tolerance": f"atol={tol[0]:.3g}, rtol={tol[1]}",
                              "args": (x0, w, s.sde)}
-            line["rk4"][dtype] = {"max_abs_err": err, "within": close}
+            line["rk4"][dtype] = {"max_abs_err": err, "within": close,
+                                  "tracking": {"max_abs_err": err_t, "within": close_t}}
 
         # rel-PE attention at the Fus encoder's four stage shapes; the JAX
         # package's bounds for its kernel (tests/test_ops.py:395, 405)
@@ -1341,17 +1369,20 @@ def main():
               sum(ks), sum(ps), nb, {"float32": ops})
         for dtype, name in (("float32", "fused_sa_stage"), ("bfloat16", "fused_sa_stage.bf16")):
             stages = results[name]["stages"]
-            ks, ps, nb, ops = [], [], 0, 0
+            ks, ps, bs, nb, ops = [], [], [], 0, {}
             for st in stages:
                 xyz, nxs, args, radii, nsamples, _ = st
                 ks.append(cuda_ms(lambda: fused_sa_stage(xyz, nxs, *args, radii, nsamples), 10))
                 ps.append(cuda_ms(lambda: fused_sa_stage_plain(xyz, nxs, *args, radii,
                                                                nsamples), 2))
                 b_, o_ = sa_cost(st, dtype)
-                nb, ops = nb + b_, ops + o_
-            per_stage[name] = {"kernel_ms": ks, "plain_ms": ps}
+                bs.append(bound_ms(b_, o_)[0])
+                nb += b_
+                for k_, v_ in o_.items():
+                    ops[k_] = ops.get(k_, 0) + v_
+            per_stage[name] = {"kernel_ms": ks, "plain_ms": ps, "bound_ms": bs}
             entry(name, csrc + "fused_sa.cu", "genpose2_tpu/ops/fused_sa.py:629",
-                  sum(ks), sum(ps), nb, {dtype: ops})
+                  sum(ks), sum(ps), nb, ops)
         # the per-scale SA kernel and the SA kernel from indices: the two
         # scale launches of the dense stage 0 (B=64, N=2048, M=512). Bound:
         # the MLP chain's operations over the real rows of this run's data
@@ -1364,7 +1395,7 @@ def main():
             esize = 2 if dtype == "bfloat16" else 4
             Bn, Nn, Mn = pts_dense.shape[0], pts_dense.shape[1], nxs.shape[1]
             t_ = {k: [] for k in ("scale", "scale_plain", "idx", "idx_plain")}
-            cost = {"scale": [0, 0, 0], "idx": [0, 0, 0]}  # bytes, f32 ops, MLP ops
+            cost = {"scale": [0, 0, 0], "idx": [0, 0, 0]}  # bytes, f32 ops, MLP product ops
             for sc in range(len(radii)):
                 op, r, ns = (projs[sc], centers[sc], affs[sc], wss[sc]), radii[sc], nsamples[sc]
                 idx = ball_query_plain(pts_dense, nxs, r, ns)
@@ -1383,20 +1414,18 @@ def main():
                 c_out = op[3][-1].shape[1] if op[3] else h1
                 common = (Bn * Nn * h1 * esize + Bn * Mn * h1 * 4 + macs * esize
                           + sum(2 * 4 * a.numel() for a, _ in op[2]) + Bn * Mn * c_out * 4)
-                mlp_ops = rows * (2 * macs + 4 * h1)
                 for key, extra, scan in (("scale", 12 * Bn * (Nn + Mn), 9 * scanned),
                                          ("idx", 4 * Bn * Mn * ns, 0)):
                     cost[key][0] += common + extra
-                    cost[key][1] += scan
-                    cost[key][2] += mlp_ops
+                    cost[key][1] += scan + rows * 4 * h1
+                    cost[key][2] += rows * 2 * macs
             per_stage["fused_sa_scale" + sfx] = {"kernel_ms": t_["scale"],
                                                  "plain_ms": t_["scale_plain"]}
             per_stage["fused_group_mlp_pool" + sfx] = {"kernel_ms": t_["idx"],
                                                        "plain_ms": t_["idx_plain"]}
             for name, key in (("fused_sa_scale", "scale"), ("fused_group_mlp_pool", "idx")):
                 nb, f32_ops, mlp_ops = cost[key]
-                ops = ({"float32": f32_ops + mlp_ops} if dtype == "float32"
-                       else {"float32": f32_ops, dtype: mlp_ops})
+                ops = {"float32": f32_ops, mm_type(dtype): mlp_ops}
                 replaces = {"fused_sa_scale": "genpose2_tpu/ops/fused_sa.py:337",
                             "fused_group_mlp_pool": "genpose2_tpu/ops/fused_sa.py:121"}[name]
                 entry(name + sfx, csrc + "fused_sa.cu", replaces, sum(t_[key]),
@@ -1412,8 +1441,18 @@ def main():
             nbytes = R * D * 8 + R * H1 * 4 + macs * esize + STEPS * (3 * H1 + 7) * 4
             ms = cuda_ms(lambda: fused_rk4_integrate(x0, w, sde, T0, STEPS, dtype), 5)
             pms = cuda_ms(lambda: fused_rk4_plain(x0, w, sde, T0, STEPS, dtype), 1)
+            # a tracking call's shape: the first TRACK_R rows, TRACK_STEPS steps
+            x0t, wt = x0[:TRACK_R].contiguous(), rk4_rows(w, TRACK_R)
+            ms_t = cuda_ms(lambda: fused_rk4_integrate(x0t, wt, sde, TRACK_T0, TRACK_STEPS,
+                                                       dtype), 5)
+            nbytes_t = (TRACK_R * D * 8 + TRACK_R * H1 * 4 + macs * esize
+                        + TRACK_STEPS * (3 * H1 + 7) * 4)
+            b_t, _ = bound_ms(nbytes_t, {mm_type(dtype): TRACK_STEPS * 4 * TRACK_R * 2 * macs})
+            per_stage[name] = {"kernel_ms": ms, "tracking_ms": ms_t, "tracking_bound_ms": b_t}
             entry(name, csrc + "ode_rk4.cu", "genpose2_tpu/ops/ode_rk4.py:233", ms, pms,
-                  nbytes, {dtype: STEPS * 4 * R * 2 * macs})
+                  nbytes, {mm_type(dtype): STEPS * 4 * R * 2 * macs},
+                  tracking={"R": TRACK_R, "steps": TRACK_STEPS, "T0": TRACK_T0, "ms": ms_t,
+                            "bound_ms": b_t})
 
         # rel-PE: the four stage launches of one encoder forward. Bias per
         # (query, key) pair: ~14 operations for dist and the unit vector, 10 per
@@ -1436,8 +1475,7 @@ def main():
                 mm_ops += 4 * pairs * C  # H heads x 2 products x 2 D
             per_stage[name] = {"kernel_ms": ks, "plain_ms": ps}
             entry(name, csrc + "relpe_attention.cu", "genpose2_tpu/ops/relpe_attention.py:216",
-                  sum(ks), sum(ps), nb, {"float32": f32_ops, dtype: mm_ops} if dtype != "float32"
-                  else {"float32": f32_ops + mm_ops})
+                  sum(ks), sum(ps), nb, {"float32": f32_ops, mm_type(dtype): mm_ops})
 
         # residual LN: the eight launches of one encoder forward (two per stage);
         # library: F.layer_norm of the precomputed sum x + h (float32)
@@ -1479,8 +1517,7 @@ def main():
             esize = 2 if dtype == "bfloat16" else 4
             scores = Bt * vit_heads * n_tok * n_tok
             rope_ops = 6 * 2 * Bt * n_tok * vit_dim if rope else 0
-            ops = ({dtype: 4 * scores * hd, "float32": 5 * scores + rope_ops}
-                   if dtype != "float32" else {"float32": 4 * scores * hd + 5 * scores + rope_ops})
+            ops = {mm_type(dtype): 4 * scores * hd, "float32": 5 * scores + rope_ops}
             nbytes = (3 * Bt * n_tok * vit_dim * esize + Bt * n_tok * vit_dim * 4
                       + (2 * n_tok * hd * 4 if rope else 0))
             ms, lms = cuda_ms(run, 20), cuda_ms(library, 20)
@@ -1558,7 +1595,8 @@ def main():
                       "of one encoder forward; fused_sa_scale and fused_group_mlp_pool: the two "
                       "scale launches of the dense stage 0; library_ms of vit_attention_rope: "
                       "the elementwise rotation of q and k, then SDPA; the ViT attention "
-                      "entries' frame_batch: the same launch at a frame call's batch; "
+                      "entries' frame_batch: the same launch at a frame call's batch; fused_rk4 "
+                      "entries' tracking: the kernel at a tracking call's shape; "
                       "residual_layernorm: its "
                       "eight "
                       "launches; ball_query: the eight launches of one training step; "

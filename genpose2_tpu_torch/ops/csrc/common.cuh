@@ -37,16 +37,6 @@ __device__ __forceinline__ float warp_max(float v) {
 // shared-memory layout starts 16-byte aligned.
 __host__ __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
 
-// A matmul operand rounded to the compute type T and held as float: the JAX
-// reference casts the left operand to the weights' dtype before each dot
-// (jnp.dot(h.astype(W.dtype), W, preferred_element_type=f32)). A bf16 x bf16
-// product is exact in f32, so only the order of the f32 sums differs.
-template <typename T> __device__ __forceinline__ float as_operand(float v);
-template <> __device__ __forceinline__ float as_operand<float>(float v) { return v; }
-template <> __device__ __forceinline__ float as_operand<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Squared distance ((dx*dx + dy*dy) + dz*dz), every operation rounded on its
 // own and never contracted into an FMA: the JAX reference's order and
 // rounding, so that radius tests and argmax ties agree bit for bit.

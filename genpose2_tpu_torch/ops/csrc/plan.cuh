@@ -1,0 +1,207 @@
+// Launch plans of the tensor-core kernels (ode_rk4.cu, fused_sa.cu): row
+// tile, ring depth and the shared-memory layout, from the shapes alone.
+//
+// Plain C++ with no CUDA in it, so that a host compiler builds it too:
+// tests/test_torch_port_plan.py compiles it with -DGP2_PLAN_EXPORTS and checks
+// the plans of the repository's configurations through the C functions at
+// the end.
+#pragma once
+
+#ifdef __CUDACC__
+#define GP2_HD __host__ __device__ __forceinline__
+#else
+#define GP2_HD inline
+#endif
+
+constexpr int kPlanWarps = 16;         // warps of a block
+constexpr int kChunkCols = 256;        // output columns of one product pass
+constexpr int kRingBytes = 33792;      // one ring buffer: 64 x 264 bf16, 32 x 264 float32
+constexpr int kSmemLimit = 232448;     // dynamic shared memory of one block (227 KB)
+constexpr int kScratchFloats = 2048;   // RK4: the split-depth sums of the last product
+constexpr int kSaCentroids = 16;       // SA: centroids of one block (8 or 4 where 16 do not fit)
+constexpr int kSaMaxScales = 4;
+constexpr int kSaMaxLayers = 4;
+
+GP2_HD int round_up(int n, int m) { return (n + m - 1) / m * m; }
+GP2_HD int imin(int a, int b) { return a < b ? a : b; }
+GP2_HD int imax(int a, int b) { return a > b ? a : b; }
+
+// Output column chunks of a product with N columns, and the width of chunk c.
+GP2_HD int n_chunks(int N) { return (N + kChunkCols - 1) / kChunkCols; }
+GP2_HD int chunk_cols(int N, int c) { return imin(kChunkCols, N - c * kChunkCols); }
+// Row stride (elements) of an activation buffer of depth K, and of a weight
+// tile of `cols` columns (see mma.cuh).
+GP2_HD int act_ld(int K, int esize) { return round_up(K, 16) + (esize == 2 ? 8 : 4); }
+GP2_HD int tile_ld(int cols) { return round_up(cols, 16) + 8; }
+// Rows (depth) of one weight tile: as many as a ring buffer of buf_elems
+// holds, a multiple of 16, at most K rounded up to 16.
+GP2_HD int tile_rows(int K, int cols, int buf_elems) {
+  return imin(round_up(K, 16), buf_elems / tile_ld(cols) / 16 * 16);
+}
+GP2_HD int n_ktiles(int K, int cols, int buf_elems) {
+  const int kt = tile_rows(K, cols, buf_elems);
+  return (round_up(K, 16) + kt - 1) / kt;
+}
+// Elements of one ring buffer for a product (K, N): its whole first chunk
+// where that is below cap_bytes.
+GP2_HD int ring_need(int K, int N, int esize, int cap_bytes = kRingBytes) {
+  return imin(cap_bytes / esize, round_up(K, 16) * tile_ld(chunk_cols(N, 0)));
+}
+
+// Blocks in rounds of num_sms, times rows: the rows one SM works through.
+inline long long rows_per_sm(int R, int rows, int num_sms) {
+  const long long blocks = (R + rows - 1) / rows;
+  return (blocks + num_sms - 1) / num_sms * rows;
+}
+
+// ------------------------------------------------------------------ RK4
+
+struct Rk4Plan {
+  int rows;        // rows of one block (16 or 32)
+  int nbuf;        // ring buffers (2 or 3)
+  int ring_elems;  // elements of one ring buffer
+  int dpad;        // state stride: D rounded up to 4
+  int ldp, ldq;    // activation strides (elements) of buffers P and Q
+  int w2_rows;     // rows of W2 held in shared memory for the whole call
+                   // (H1 rounded up to 16), or 0: W2 streams with the rest
+  int smem_bytes;
+  // byte offsets: f32 X, XT, KS[4] (rows x dpad each), scratch; P, Q, the
+  // resident W2 (w2_rows x tile_ld(D)), ring
+  int off_state, off_scratch, off_p, off_q, off_w2, off_ring;
+};
+
+// 0 and *p filled, or -1 when no plan fits (D above 16, or too wide).
+inline int rk4_plan(int R, int D, int P1, int P2, int H1, int bf16, int num_sms, Rk4Plan* p) {
+  if (R < 1 || D < 1 || D > 16 || P1 < 1 || P2 < 1 || H1 < 1 || num_sms < 1) return -1;
+  const int es = bf16 ? 2 : 4;
+  int best = -1;
+  long long best_load = 0;
+  for (int rows = 32; rows >= 16; rows -= 16) {
+    // the first that fits of: full-size ring tiles before half-size; W2
+    // resident (its rows are D wide: a tile of the stream is mostly padding,
+    // and bf16 rows of odd D copy element by element); a ring 3 deep before 2
+    for (int opt = 0; opt < 8; ++opt) {
+      const int cap = kRingBytes >> (opt / 4), resident = opt / 2 % 2 == 0, nbuf = 3 - opt % 2;
+      Rk4Plan q;
+      q.rows = rows;
+      q.nbuf = nbuf;
+      q.ring_elems = imax(imax(ring_need(D, P1, es, cap), ring_need(P1, P2, es, cap)),
+                          ring_need(P2, H1, es, cap));
+      if (!resident) q.ring_elems = imax(q.ring_elems, ring_need(H1, D, es, cap));
+      q.dpad = round_up(D, 4);
+      q.ldp = imax(act_ld(D, es), act_ld(P2, es));
+      q.ldq = imax(act_ld(P1, es), act_ld(H1, es));
+      q.w2_rows = resident ? round_up(H1, 16) : 0;
+      q.off_state = 0;
+      q.off_scratch = 4 * 6 * rows * q.dpad;
+      q.off_p = q.off_scratch + 4 * kScratchFloats;
+      q.off_q = q.off_p + es * rows * q.ldp;
+      q.off_w2 = q.off_q + es * rows * q.ldq;
+      q.off_ring = q.off_w2 + es * q.w2_rows * tile_ld(D);
+      q.smem_bytes = q.off_ring + es * nbuf * q.ring_elems;
+      if (q.smem_bytes > kSmemLimit) continue;
+      const long long load = rows_per_sm(R, rows, num_sms);
+      if (best < 0 || load < best_load) {  // ties keep the larger tile
+        *p = q;
+        best = rows;
+        best_load = load;
+      }
+      break;
+    }
+  }
+  return best < 0 ? -1 : 0;
+}
+
+// ------------------------------------------------------------------- SA
+
+struct SaPlan {
+  int rows;        // rows of one product chunk (32 or 64)
+  int centroids;   // centroids of one block (16 or 8)
+  int nbuf;        // ring buffers (2 or 3)
+  int ring_elems;  // elements of one ring buffer
+  int lda, ldb;    // strides of the ping and pong activation buffers
+  int max_cout;    // widest scale output
+  int idx_stride;  // hit-list slots of a centroid (sum of nsample)
+  int smem_bytes;
+  // byte offsets: f32 pooled outputs (centroids x max_cout) as int bits,
+  // f32 xs/ys/zs (n_staged each), int hit lists, rows per centroid
+  // (centroids x kSaMaxScales), rstart (centroids + 1), row centroid and row
+  // point (rows each); then the two activation buffers and the ring
+  int off_acc, off_xyz, off_idx, off_nrow, off_rstart, off_rowc, off_rowp, off_a, off_b,
+      off_ring;
+};
+
+// Per scale s: nsample[s], num_layers[s] and widths[s * (kSaMaxLayers + 1) +
+// 0..num_layers]; n_staged: points staged for the ball query (0 for index
+// hits). 0 and *p filled, or -1.
+inline int sa_plan(int n_scales, const int* nsample, const int* num_layers, const int* widths,
+                   int n_staged, int bf16, SaPlan* p) {
+  if (n_scales < 1 || n_scales > kSaMaxScales || n_staged < 0) return -1;
+  const int es = bf16 ? 2 : 4;
+  int wa = 16, wb = 16, cout = 1, slots = 0, ring[2] = {8, 8};  // full, half tiles
+  for (int s = 0; s < n_scales; ++s) {
+    const int L = num_layers[s];
+    const int* w = widths + s * (kSaMaxLayers + 1);
+    if (L < 0 || L > kSaMaxLayers || nsample[s] < 1) return -1;
+    for (int l = 0; l <= L; ++l)
+      if (w[l] < 1) return -1;
+    wa = imax(wa, w[0]);  // the gather: ping
+    for (int l = 0; l + 1 < L; ++l) {  // stored outputs alternate pong, ping
+      if (l % 2 == 0) wb = imax(wb, w[l + 1]);
+      else wa = imax(wa, w[l + 1]);
+    }
+    for (int l = 0; l < L; ++l) {
+      ring[0] = imax(ring[0], ring_need(w[l], w[l + 1], es));
+      ring[1] = imax(ring[1], ring_need(w[l], w[l + 1], es, kRingBytes / 2));
+    }
+    cout = imax(cout, w[L]);
+    slots += nsample[s];
+  }
+  // 64-row chunks first (half the weight stream of 32); then the first that
+  // fits of: a ring 3 deep before 2, full-size ring tiles, 16, 8 or 4
+  // centroids a block
+  const int opts[5][2] = {{16, 0}, {8, 0}, {16, 1}, {8, 1}, {4, 1}};  // centroids, half
+  for (int rows = 64; rows >= 32; rows -= 32) {
+    for (int opt = 0; opt < 10; ++opt) {
+      const int cent = opts[opt % 5][0], half = opts[opt % 5][1], nbuf = 3 - opt / 5;
+      SaPlan q;
+      q.rows = rows;
+      q.centroids = cent;
+      q.nbuf = nbuf;
+      q.ring_elems = ring[half];
+      q.lda = act_ld(wa, es);
+      q.ldb = act_ld(wb, es);
+      q.max_cout = cout;
+      q.idx_stride = slots;
+      q.off_acc = 0;
+      q.off_xyz = q.off_acc + 4 * round_up(cent * cout, 4);
+      q.off_idx = q.off_xyz + 4 * 3 * round_up(n_staged, 4);
+      q.off_nrow = q.off_idx + 4 * round_up(cent * slots, 4);
+      q.off_rstart = q.off_nrow + 4 * cent * kSaMaxScales;
+      q.off_rowc = q.off_rstart + 4 * round_up(cent + 1, 4);
+      q.off_rowp = q.off_rowc + 4 * rows;
+      q.off_a = q.off_rowp + 4 * rows;
+      q.off_b = q.off_a + es * rows * q.lda;
+      q.off_ring = q.off_b + es * rows * q.ldb;
+      q.smem_bytes = q.off_ring + es * nbuf * q.ring_elems;
+      if (q.smem_bytes <= kSmemLimit) {
+        *p = q;
+        return 0;
+      }
+    }
+  }
+  return -1;
+}
+
+#ifdef GP2_PLAN_EXPORTS
+// The plans as int arrays, in the order of the structs' fields.
+extern "C" int gp2_rk4_plan(int R, int D, int P1, int P2, int H1, int bf16, int num_sms,
+                            int* out) {
+  return rk4_plan(R, D, P1, P2, H1, bf16, num_sms, reinterpret_cast<Rk4Plan*>(out));
+}
+extern "C" int gp2_sa_plan(int n_scales, const int* nsample, const int* num_layers,
+                           const int* widths, int n_staged, int bf16, int* out) {
+  return sa_plan(n_scales, nsample, num_layers, widths, n_staged, bf16,
+                 reinterpret_cast<SaPlan*>(out));
+}
+#endif

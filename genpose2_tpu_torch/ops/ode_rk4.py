@@ -122,6 +122,8 @@ def _rk4_cuda(x0, weights, sde, T0, num_steps, compute_dtype):
     wp = weights["W1_pose"].to(dt).contiguous()
     w2 = weights["W2bd"].to(dt).contiguous()
     b2 = weights["b2cat"].float().contiguous()
+    if D > 16:
+        raise ValueError(f"pose dim {D}: the kernel's last product holds at most 16 columns")
     trows, scal = _time_tables(weights, sde, T0, float(sde.eps), num_steps)
     for t, name, dtype, shape in (
         (x0, "x0", torch.float32, (R, D)), (static, "static", torch.float32, (R, H1)),

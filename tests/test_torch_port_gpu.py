@@ -207,6 +207,134 @@ def test_rk4_kernel_matches_plain(card, mode):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["ve", "vp", "subvp"])
+@pytest.mark.parametrize("R,steps,T0", [
+    (1, 50, 0.55),      # one row: a block of 16 rows with 15 empty
+    (37, 50, 0.55),     # a partial last tile
+    (600, 100, 0.15),   # a tracking call: 12 objects x 50 candidates
+    (3200, 50, 0.55),   # a request: 64 objects x 50 candidates
+])
+def test_rk4_kernel_flagship_widths(card, dtype, mode, R, steps, T0):
+    """The score net at its real widths (pose MLP 256/256, three 256-wide
+    heads: H1 = 768, D = 9), at the row counts of the serving paths."""
+    sde = init_sde(mode)
+    net = _randomize(PoseScoreNet(sde.marginal_std, 9, "Rx_Ry_and_T", 128), 12).to(card)
+    g = torch.Generator().manual_seed(13)
+    feat = torch.randn(R, 128, generator=g).to(card)
+    x0 = (torch.randn(R, 9, generator=g) * T0).to(card)
+    with torch.no_grad():
+        w = fast_score_weights(net, feat)
+        assert (w["W1_pose"].shape, w["W2bd"].shape) == ((256, 768), (768, 9))
+        before = _cuda.launch_counts["fused_rk4"]
+        got = fused_rk4_integrate(x0, w, sde, T0, steps, dtype)
+        assert _cuda.launch_counts["fused_rk4"] == before + 1
+        want = fused_rk4_plain(x0, w, sde, T0, steps, dtype)
+    # chip_smoke.py's bounds: f32 the JAX package's for the fused kernel
+    # against the scan; bf16 looser (t rows kept f32 where the scan rounds)
+    atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+# the Fus encoder's stage 2 and stage 3 (config.py: PointNet2Config.mlps)
+SA_WIDE = {"stage2": ((128, 196, 256), (128, 196, 256)),
+           "stage3": ((256, 256, 512), (256, 384, 512))}
+
+
+def _sa_wide_case(card, widths, bf16, seed):
+    """Operands of one two-scale stage at the given widths: B=2 objects of
+    400 points, M=37 centroids (not a multiple of the 16-centroid tile), the
+    last one far from every point (no hit), radii (0.2, 0.3): the small
+    scale mostly partial, the large one mostly full."""
+    rng = np.random.default_rng(seed)
+    B, N, M = 2, 400, 37
+    dt = torch.bfloat16 if bf16 else torch.float32
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(card, dtype)
+
+    xyz = rng.uniform(-0.5, 0.5, size=(B, N, 3))
+    new_xyz = np.concatenate([xyz[:, : M - 1], np.full((B, 1, 3), 5.0)], axis=1)
+    projs, centers, affines, weights = [], [], [], []
+    for ws in widths:
+        projs.append(t(rng.normal(size=(B, N, ws[0])), dt))
+        centers.append(t(rng.normal(size=(B, M, ws[0]))))
+        affines.append([(t(rng.uniform(0.5, 1.5, size=w)), t(rng.normal(size=w))) for w in ws])
+        weights.append([t(rng.normal(size=(a, b)) / np.sqrt(a), dt)
+                        for a, b in zip(ws[:-1], ws[1:])])
+    return t(xyz), t(new_xyz), projs, centers, affines, weights, (0.2, 0.3), (16, 32)
+
+
+def _assert_sa_edges(xyz, new_xyz, radius, nsample):
+    """The case holds a centroid with no hit, one whose hits fill nsample,
+    and, in a 16-centroid tile, a centroid whose rows cross a multiple of 64
+    (a row-chunk boundary at 32 and at 64 rows)."""
+    rows = ball_count_plain(xyz, new_xyz, radius).clamp(max=nsample).cpu()
+    assert (rows == 0).any() and (rows == nsample).any()
+    rows = rows.clamp(min=1)
+    crossing = False
+    for b in range(rows.shape[0]):
+        for m0 in range(0, rows.shape[1], 16):
+            end = torch.cumsum(rows[b, m0:m0 + 16], 0)
+            start = end - rows[b, m0:m0 + 16]
+            crossing |= bool(((start // 64) != ((end - 1) // 64)).any())
+    assert crossing
+
+
+def _assert_sa_close(got, want, bf16):
+    # chip_smoke.py's bounds: of max|plain|, f32 1e-4 (sums in another
+    # order, 3xTF32), bf16 2e-2 (the same bf16 operands, a rare flip of one
+    # bf16 rounding)
+    tol = 2e-2 if bf16 else 1e-4
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("stage", sorted(SA_WIDE))
+def test_fused_sa_stage_wide(card, bf16, stage):
+    xyz, nxs, projs, centers, affines, weights, radii, nsamples = _sa_wide_case(
+        card, SA_WIDE[stage], bf16, 31)
+    for r, ns in zip(radii, nsamples):
+        _assert_sa_edges(xyz, nxs, r, ns)
+    args = (xyz, nxs, projs, centers, affines, weights, radii, nsamples)
+    before = _cuda.launch_counts["fused_sa_stage"]
+    got = fused_sa_stage(*args)
+    assert _cuda.launch_counts["fused_sa_stage"] == before + 1
+    _assert_sa_close(got, fused_sa_stage_plain(*args), bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("stage", sorted(SA_WIDE))
+def test_fused_sa_scale_wide(card, bf16, stage):
+    xyz, nxs, projs, centers, affines, weights, radii, nsamples = _sa_wide_case(
+        card, SA_WIDE[stage], bf16, 32)
+    for s in range(2):
+        _assert_sa_edges(xyz, nxs, radii[s], nsamples[s])
+        args = (xyz, nxs, projs[s], centers[s], affines[s], weights[s], radii[s], nsamples[s])
+        before = _cuda.launch_counts["fused_sa_scale"]
+        got = fused_sa_scale(*args)
+        assert _cuda.launch_counts["fused_sa_scale"] == before + 1
+        _assert_sa_close(got, fused_sa_scale_plain(*args), bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("stage", sorted(SA_WIDE))
+def test_fused_group_mlp_pool_wide(card, bf16, stage):
+    xyz, nxs, projs, centers, affines, weights, radii, nsamples = _sa_wide_case(
+        card, SA_WIDE[stage], bf16, 33)
+    for s in range(2):
+        idx = ball_query_plain(xyz, nxs, radii[s], nsamples[s])
+        idx[:, :5, 3] = -1  # outside [0, N): a zero row
+        idx[:, 5:10, 1:] = idx[:, 5:10, :1]  # one point in every slot
+        before = _cuda.launch_counts["fused_group_mlp_pool"]
+        got = fused_group_mlp_pool(projs[s], idx, centers[s], affines[s], weights[s])
+        assert _cuda.launch_counts["fused_group_mlp_pool"] == before + 1
+        _assert_sa_close(got, fused_group_mlp_pool_plain(projs[s], idx, centers[s], affines[s],
+                                                         weights[s]), bf16)
+
+
 def _normal(gen, shape, card, dtype=torch.float32):
     return torch.randn(shape, generator=gen).to(card, dtype)
 
