@@ -140,6 +140,24 @@ def cuda_ms(fn, reps, warmup=1):
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, kernel, reps=5):
+    """Device time (ms) of the CUDA kernels whose name holds ``kernel`` per
+    call of fn, by torch.profiler: the card's own time, without the host
+    work between launches that an event pair around the calls also counts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and kernel in ev.key) / 1e3 / reps
+
+
 def bound_ms(nbytes, ops):
     """ops: {dtype: operations}; the operations' time is the sum over types."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1454,28 +1472,54 @@ def main():
                   tracking={"R": TRACK_R, "steps": TRACK_STEPS, "T0": TRACK_T0, "ms": ms_t,
                             "bound_ms": b_t})
 
-        # rel-PE: the four stage launches of one encoder forward. Bias per
-        # (query, key) pair: ~14 operations for dist and the unit vector, 10 per
-        # hidden channel (16), 4 per channel and head; softmax ~5 per score;
-        # the two products 2 * 2 * D per score (in the compute dtype)
+        # rel-PE: the four stage launches of one encoder forward, at a
+        # request's batch B and a frame call's N_OBJ. Bias per (query, key)
+        # pair: ~14 operations for dist and the unit vector and 10 per hidden
+        # channel (16) on the FMA pipes; the mix of the 16 channels into the
+        # heads, 4 per channel and head, a float32 product (3xTF32's rate
+        # in either dtype: the bias stays float32); softmax ~5 per score on
+        # the FMA pipes; the two products 2 * 2 * D per score (in the compute
+        # dtype)
+        def relpe_work(Bt, esize, mm_key):
+            nb, ops = 0, {"float32": 0, "float32_mma": 0, mm_key: 0}
+            for M, C in fus_stages:
+                pairs = Bt * M * M
+                nb += Bt * M * 12 + 3 * Bt * M * C * esize + Bt * M * C * 4
+                ops["float32"] += pairs * (14 + 16 * 10) + 5 * pairs * H_PE
+                ops["float32_mma"] += pairs * 16 * H_PE * 4
+                ops[mm_key] += 4 * pairs * C  # H heads x 2 products x 2 D
+            return nb, ops
+
+        # ms: CUDA events around back-to-back wrapper calls, whose host work
+        # (fold_pe) exceeds the kernel at the smaller stages; device_ms: the
+        # kernel alone (torch.profiler)
         for dtype in ("float32", "bfloat16"):
             name = "relpe_attention" if dtype == "float32" else "relpe_attention.bf16"
             esize = 2 if dtype == "bfloat16" else 4
             cdt = compute_dtype_of(dtype)
-            ks, ps, nb, f32_ops, mm_ops = [], [], 0, 0, 0
-            for (M, C), (xyz, q, k, v) in zip(fus_stages, relpe_in):
+            ks, ds, ks12, ds12, ps = [], [], [], [], []
+            for xyz, q, k, v in relpe_in:
                 qd, kd, vd = q.to(cdt), k.to(cdt), v.to(cdt)
-                ks.append(cuda_ms(lambda: relpe_attention(xyz, qd, kd, vd, pe_mod, H_PE, dtype),
-                                  10))
+                x12, q12, k12, v12 = (t[:N_OBJ].contiguous() for t in (xyz, qd, kd, vd))
+
+                def run(xyz=xyz, q=qd, k=kd, v=vd):
+                    return relpe_attention(xyz, q, k, v, pe_mod, H_PE, dtype)
+
+                def run12(xyz=x12, q=q12, k=k12, v=v12):
+                    return relpe_attention(xyz, q, k, v, pe_mod, H_PE, dtype)
+                ks.append(cuda_ms(run, 10))
+                ds.append(device_ms(run, "relpe_kernel"))
+                ks12.append(cuda_ms(run12, 20))
+                ds12.append(device_ms(run12, "relpe_kernel"))
                 ps.append(cuda_ms(lambda: relpe_attention_plain(xyz, qd, kd, vd, pe_mod, H_PE,
                                                                 dtype), 2))
-                pairs = B * M * M
-                nb += B * M * 12 + 3 * B * M * C * esize + B * M * C * 4
-                f32_ops += pairs * (14 + 16 * 10 + 16 * H_PE * 4) + 5 * pairs * H_PE
-                mm_ops += 4 * pairs * C  # H heads x 2 products x 2 D
-            per_stage[name] = {"kernel_ms": ks, "plain_ms": ps}
+            b12, _ = bound_ms(*relpe_work(N_OBJ, esize, mm_type(dtype)))
+            per_stage[name] = {"kernel_ms": ks, "device_ms": ds, "plain_ms": ps,
+                               "frame_batch_ms": ks12, "frame_batch_device_ms": ds12}
             entry(name, csrc + "relpe_attention.cu", "genpose2_tpu/ops/relpe_attention.py:216",
-                  sum(ks), sum(ps), nb, {"float32": f32_ops, mm_type(dtype): mm_ops})
+                  sum(ks), sum(ps), *relpe_work(B, esize, mm_type(dtype)), device_ms=sum(ds),
+                  frame_batch={"B": N_OBJ, "ms": sum(ks12), "device_ms": sum(ds12),
+                               "bound_ms": b12})
 
         # residual LN: the eight launches of one encoder forward (two per stage);
         # library: F.layer_norm of the precomputed sum x + h (float32)
@@ -1595,7 +1639,9 @@ def main():
                       "of one encoder forward; fused_sa_scale and fused_group_mlp_pool: the two "
                       "scale launches of the dense stage 0; library_ms of vit_attention_rope: "
                       "the elementwise rotation of q and k, then SDPA; the ViT attention "
-                      "entries' frame_batch: the same launch at a frame call's batch; fused_rk4 "
+                      "and relpe_attention entries' frame_batch: the same launches at a frame "
+                      "call's batch; relpe_attention entries' device_ms: the kernel's own time by "
+                      "torch.profiler (ms: events around wrapper calls); fused_rk4 "
                       "entries' tracking: the kernel at a tracking call's shape; "
                       "residual_layernorm: its "
                       "eight "

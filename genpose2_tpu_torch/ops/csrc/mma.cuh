@@ -1,6 +1,8 @@
 // Tensor-core products for the kernels whose weights stream through shared
 // memory (ode_rk4.cu, fused_sa.cu): rows of activations in shared memory
-// times a weight matrix in device memory, tile by tile.
+// times a weight matrix in device memory, tile by tile; and the online
+// softmax of attention on mma fragments (relpe_attention.cu,
+// vit_attention.cu).
 //
 // Both operands are held in the compute type, as the JAX reference casts the
 // left operand to the weights' dtype before each dot
@@ -105,6 +107,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// x = hi + lo with both parts rounded to TF32 (cvt.rna): x - hi is exact
+// and lo keeps 11 of its 13 bits, so hi + lo is within 2^-22 |x| of x, half
+// the error of split_tf32, for products whose error the rounding must bound
+// (the attention kernels' float32 paths).
+__device__ __forceinline__ void split_tf32_rn(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
 }
 
 // ------------------------------------------------------------ weight tiles
@@ -477,6 +489,70 @@ __device__ __forceinline__ void zero(float (&acc)[M][4][4]) {
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// ------------------------------------- online softmax on score fragments
+// g = lane / 4, t = lane % 4. A score or output fragment (m16 x n8) holds
+// rows g and g + 8 of the warp's 16, columns 2t and 2t + 1 of each 8-column
+// tile.
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 2^x by the special-function unit (relative error about 2^-22; results
+// below 2^-126 flush to 0, far below any weight that moves a float32 sum).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The chunk's scores u -> weights 2^(u c - m c), with the running max m and
+// the lane's share of the running sum l of rows g and g + 8 brought up to
+// date; alpha: the factor by which the rows' earlier o and l shrink (1 when
+// m did not move). Every row of a chunk must hold a finite score.
+template <int kNT>
+__device__ __forceinline__ void softmax_chunk(float (&u)[kNT][4], float (&m)[2], float (&l)[2],
+                                              float c, float (&alpha)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float cm = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) cm = fmaxf(cm, fmaxf(u[nt][2 * r], u[nt][2 * r + 1]));
+    const float mn = fmaxf(m[r], quad_max(cm));
+    alpha[r] = ex2((m[r] - mn) * c);
+    m[r] = mn;
+    const float mc = mn * c;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      u[nt][2 * r] = ex2(fmaf(u[nt][2 * r], c, -mc));
+      u[nt][2 * r + 1] = ex2(fmaf(u[nt][2 * r + 1], c, -mc));
+      sum += u[nt][2 * r] + u[nt][2 * r + 1];
+    }
+    l[r] = l[r] * alpha[r] + sum;
+  }
+}
+
+// Rows g and g + 8 of an output fragment times f[0] and f[1].
+template <int kN>
+__device__ __forceinline__ void scale_rows(float (&o)[kN][4], const float (&f)[2]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] *= f[e >> 1];
+  }
 }
 
 }  // namespace mma

@@ -1,5 +1,6 @@
-// Launch plans of the tensor-core kernels (ode_rk4.cu, fused_sa.cu): row
-// tile, ring depth and the shared-memory layout, from the shapes alone.
+// Launch plans of the tensor-core kernels (ode_rk4.cu, fused_sa.cu,
+// relpe_attention.cu): row or query tile, ring depth, heads of a block and
+// the shared-memory layout, from the shapes alone.
 //
 // Plain C++ with no CUDA in it, so that a host compiler builds it too:
 // tests/test_torch_port_plan.py compiles it with -DGP2_PLAN_EXPORTS and checks
@@ -193,8 +194,97 @@ inline int sa_plan(int n_scales, const int* nsample, const int* num_layers, cons
   return -1;
 }
 
+// --------------------------------------------------------------- rel-PE
+
+constexpr int kRelpeHeads = 8;   // heads of the Fus encoder's rel-PE blocks
+constexpr int kRelpeChunk = 32;  // keys of one chunk
+constexpr int kRelpeBufs = 2;    // K, V and key-xyz chunk buffers
+constexpr int kRelpeHid = 16;    // hidden channels of the bias MLPs
+constexpr int kRelpeRecord = 24; // floats of one hidden channel's constants
+
+struct RelpePlan {
+  int heads;  // heads of one block (8, 4, 2 or 1)
+  int warps;  // warps of a block (8 or 4), one (head, 16 query rows) task each
+  int tq;     // query rows of a block: 16 * warps / heads
+  int kc;     // keys of one chunk
+  int nbuf;   // chunk buffers
+  int dp;     // head width D padded to the mma depth: 16, 32, 64 or 128
+  int ldkv;   // row stride (elements) of staged K and V: dp + 8 (bf16) or dp + 4
+  int ldb;    // row stride (floats) of the bias: kc + 8
+  int blocks; // blocks of the grid: B * ceil(M / tq) * (8 / heads)
+  int smem_bytes;
+  // byte offsets: f32 constants (kRelpeHid records, then 8 bc), query xyz
+  // (tq x 3), key xyz (nbuf x kc x 3), bias (heads x tq x ldb); K and V
+  // (nbuf x heads x kc x ldkv each)
+  int off_cst, off_qxyz, off_kxyz, off_bias, off_k, off_v;
+};
+
+GP2_HD int relpe_depth(int D) {
+  return D < 1 ? 0 : D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+}
+
+// (B, M, C = 8 heads x D, D even and at most 128): 0 and *p filled, or -1.
+// Options in order: 8 heads a block with 8 warps (16 query rows), then
+// fewer heads (the K and V chunks of 8 wide heads do not fit, or too few
+// blocks), then 4 warps. The first that leaves room for two blocks on an SM
+// and puts num_sms blocks on the grid with no query tile wider than M
+// (rounded up to 16); else the one with the most blocks among those that
+// leave two blocks room with no tile wider than M, then among those that
+// fit with no tile wider than M, then among those that fit.
+inline int relpe_plan(int B, int M, int C, int H, int bf16, int num_sms, RelpePlan* p) {
+  if (B < 1 || M < 1 || H != kRelpeHeads || C % H != 0 || (C / H) % 2 != 0 || num_sms < 1)
+    return -1;
+  const int D = C / H, dp = relpe_depth(D);
+  if (dp == 0) return -1;
+  const int es = bf16 ? 2 : 4;
+  const int opts[7][2] = {{8, 8}, {4, 8}, {4, 4}, {2, 8}, {2, 4}, {1, 8}, {1, 4}};
+  RelpePlan cand[7];
+  for (int o = 0; o < 7; ++o) {
+    RelpePlan& q = cand[o];
+    q.heads = opts[o][0];
+    q.warps = opts[o][1];
+    q.tq = 16 * q.warps / q.heads;
+    q.kc = kRelpeChunk;
+    q.nbuf = kRelpeBufs;
+    q.dp = dp;
+    q.ldkv = dp + (bf16 ? 8 : 4);
+    q.ldb = q.kc + 8;
+    q.blocks = B * ((M + q.tq - 1) / q.tq) * (kRelpeHeads / q.heads);
+    q.off_cst = 0;
+    q.off_qxyz = q.off_cst + 4 * round_up(kRelpeHid * kRelpeRecord + kRelpeHeads, 4);
+    q.off_kxyz = q.off_qxyz + 4 * round_up(3 * q.tq, 4);
+    q.off_bias = q.off_kxyz + 4 * round_up(q.nbuf * q.kc * 3, 4);
+    q.off_k = q.off_bias + 4 * q.heads * q.tq * q.ldb;
+    q.off_v = q.off_k + es * q.nbuf * q.heads * q.kc * q.ldkv;
+    q.smem_bytes = q.off_v + es * q.nbuf * q.heads * q.kc * q.ldkv;
+  }
+  const int m16 = round_up(M, 16);
+  int pick = -1;
+  for (int pass = 0; pass < 4 && pick < 0; ++pass) {
+    const int cap = pass < 2 ? kSmemLimit / 2 : kSmemLimit;
+    for (int o = 0; o < 7; ++o) {
+      const RelpePlan& q = cand[o];
+      if (q.smem_bytes > cap || (pass < 3 && q.tq > m16)) continue;
+      if (pass == 0) {
+        if (q.blocks >= num_sms) {
+          pick = o;
+          break;
+        }
+      } else if (pick < 0 || q.blocks > cand[pick].blocks) {
+        pick = o;
+      }
+    }
+  }
+  if (pick < 0) return -1;
+  *p = cand[pick];
+  return 0;
+}
+
 #ifdef GP2_PLAN_EXPORTS
 // The plans as int arrays, in the order of the structs' fields.
+extern "C" int gp2_relpe_plan(int B, int M, int C, int H, int bf16, int num_sms, int* out) {
+  return relpe_plan(B, M, C, H, bf16, num_sms, reinterpret_cast<RelpePlan*>(out));
+}
 extern "C" int gp2_rk4_plan(int R, int D, int P1, int P2, int H1, int bf16, int num_sms,
                             int* out) {
   return rk4_plan(R, D, P1, P2, H1, bf16, num_sms, reinterpret_cast<Rk4Plan*>(out));

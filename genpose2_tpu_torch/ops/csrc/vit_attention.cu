@@ -75,18 +75,25 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using Bf16 = __nv_bfloat16;
+// the online softmax on mma fragments (mma.cuh)
+using mma::ex2;
+using mma::mma_tf32;
+using mma::pack_bf16;
+using mma::quad_max;
+using mma::quad_sum;
+using mma::scale_rows;
+using mma::softmax_chunk;
+using mma::split_tf32_rn;  // 3xTF32's split (the float32 path)
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kChunk = 64;    // keys per bf16 score chunk (one wgmma n64)
 constexpr int kF32Warps = 9;  // warps of a float32 block (one 16-row tile each)
 constexpr int kF32Tiles = 4;  // n-tiles of 8 keys in a float32 score chunk
-
-__host__ __device__ __forceinline__ int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // The MMA depth: bf16 D rounded up to 64 or 128, float32 D to 16, 32, 64 or
 // 128 (0: not supported).
@@ -126,22 +133,6 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
-}
-
-// d += a * b on the tensor cores, m16n8k8, TF32 in, float32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 3xTF32: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
 }
 
 // The wgmma matrix descriptor of a shared-memory operand in the 128-byte
@@ -249,28 +240,6 @@ __device__ __forceinline__ void wgmma_mnmajor(float (&d)[32], const uint32_t (&a
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// 2^x by the special-function unit (relative error about 2^-22; results
-// below 2^-126 flush to 0, far below any weight that moves a float32 sum).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ------------------------------------------------------------ shared layouts
@@ -420,42 +389,6 @@ __device__ __forceinline__ void mask(float (&s)[kNT][4], int key0, int lim, int 
         s[nt][e] = __fmul_rn(__fadd_rn(__fmul_rn(s[nt][e], scale), -1e9f), inv_scale);
       }
     }
-  }
-}
-
-// The chunk's scores u -> weights 2^(u c - m c), with the running max m and
-// sum l of rows g and g + 8 brought up to date; alpha: the factor by which
-// the rows' earlier o and l shrink (1 when m did not move).
-template <int kNT>
-__device__ __forceinline__ void softmax_chunk(float (&u)[kNT][4], float (&m)[2], float (&l)[2],
-                                              float c, float (&alpha)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float cm = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) cm = fmaxf(cm, fmaxf(u[nt][2 * r], u[nt][2 * r + 1]));
-    const float mn = fmaxf(m[r], quad_max(cm));  // finite: every chunk holds a key < N
-    alpha[r] = ex2((m[r] - mn) * c);
-    m[r] = mn;
-    const float mc = mn * c;
-    float sum = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      u[nt][2 * r] = ex2(fmaf(u[nt][2 * r], c, -mc));
-      u[nt][2 * r + 1] = ex2(fmaf(u[nt][2 * r + 1], c, -mc));
-      sum += u[nt][2 * r] + u[nt][2 * r + 1];
-    }
-    l[r] = l[r] * alpha[r] + sum;
-  }
-}
-
-// Rows g and g + 8 of an output fragment times f[0] and f[1].
-template <int kN>
-__device__ __forceinline__ void scale_rows(float (&o)[kN][4], const float (&f)[2]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] *= f[e >> 1];
   }
 }
 
@@ -714,7 +647,7 @@ __device__ __forceinline__ void load_q_f32(QFragF32<kDp>& f, const float* qh, co
     const int d = ks * 8 + t;
     const float x[4] = {at(r0, d), at(r1, d), at(r0, d + 4), at(r1, d + 4)};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(x[i], f.hi[ks][i], f.lo[ks][i]);
+    for (int i = 0; i < 4; ++i) split_tf32_rn(x[i], f.hi[ks][i], f.lo[ks][i]);
   }
 }
 
@@ -733,8 +666,8 @@ __device__ __forceinline__ void scores_f32(const QFragF32<kDp>& f, const float* 
 #pragma unroll
     for (int ks = 0; ks < kDp / 8; ++ks) {
       uint32_t h0, l0, h1, l1;
-      split_tf32(kr[ks * 8], h0, l0);
-      split_tf32(kr[ks * 8 + 4], h1, l1);
+      split_tf32_rn(kr[ks * 8], h0, l0);
+      split_tf32_rn(kr[ks * 8 + 4], h1, l1);
       mma_tf32(s[nt], f.lo[ks], h0, h1);
       mma_tf32(s[nt], f.hi[ks], l0, l1);
       mma_tf32(s[nt], f.hi[ks], h0, h1);
@@ -752,16 +685,16 @@ __device__ __forceinline__ void pv_f32(const float (&p)[kF32Tiles][4], const flo
   for (int nt = 0; nt < kF32Tiles; ++nt) {
     if (!kFull && key0 + nt * 8 >= Np) continue;
     uint32_t ah[4], al[4];
-    split_tf32(p[nt][0], ah[0], al[0]);
-    split_tf32(p[nt][2], ah[1], al[1]);
-    split_tf32(p[nt][1], ah[2], al[2]);
-    split_tf32(p[nt][3], ah[3], al[3]);
+    split_tf32_rn(p[nt][0], ah[0], al[0]);
+    split_tf32_rn(p[nt][2], ah[1], al[1]);
+    split_tf32_rn(p[nt][1], ah[2], al[2]);
+    split_tf32_rn(p[nt][3], ah[3], al[3]);
     const float* v0 = sV + PaddedRows<kDp>()(key0 + nt * 8 + 2 * t, g);
 #pragma unroll
     for (int dt = 0; dt < kDp / 8; ++dt) {
       uint32_t h0, l0, h1, l1;
-      split_tf32(v0[dt * 8], h0, l0);
-      split_tf32(v0[kDp + 4 + dt * 8], h1, l1);
+      split_tf32_rn(v0[dt * 8], h0, l0);
+      split_tf32_rn(v0[kDp + 4 + dt * 8], h1, l1);
       mma_tf32(o[dt], al, h0, h1);
       mma_tf32(o[dt], ah, l0, l1);
       mma_tf32(o[dt], ah, h0, h1);

@@ -12,8 +12,10 @@ bias, the scores and the softmax stay float32.
 On CUDA tensors it launches ``csrc/relpe_attention.cu``, which builds the bias
 per query tile from xyz and never writes a (B, H, M, M) tensor; the bias MLP's
 second layers and the fusion layer are folded into per-head constants first
-(``fold_pe``). On CPU tensors it runs ``relpe_attention_plain``: the module
-math (build the bias, then softmax attention), a few objects at a time.
+(``fold_pe``). The kernel takes 8 heads of an even width D = C / 8 up to
+128 (the flagship's widest stage); a wider head raises RuntimeError with
+CUDA's invalid-value code. On CPU tensors it runs ``relpe_attention_plain``: the
+module math (build the bias, then softmax attention), a few objects at a time.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """The launch plans of the tensor-core kernels (ops/csrc/plan.cuh), on the CPU.
 
 plan.cuh is plain C++: the host compiler builds it here into a small library
-with its two C functions exported, so the plans that ode_rk4.cu and
-fused_sa.cu launch with are checked without a card: for the flagship
-request, a tracking call, the dense configuration and the tests' shapes,
-each plan fits a block's 227 KB of shared memory, its sections do not
-overlap and start 16-byte aligned, and the row tile is the one the source
+with its C functions exported, so the plans that ode_rk4.cu, fused_sa.cu and
+relpe_attention.cu launch with are checked without a card: for the flagship
+request, a tracking or frame call, the dense configuration and the tests'
+shapes, each plan fits a block's 227 KB of shared memory, its sections do
+not overlap and start 16-byte aligned, and the tiles are the ones the source
 notes describe.
 """
 
@@ -16,7 +16,7 @@ from pathlib import Path
 
 import pytest
 
-from genpose2_tpu_torch.config import PointNet2Config
+from genpose2_tpu_torch.config import PointNet2Config, tiny_test_config
 
 CSRC = Path(__file__).resolve().parents[1] / "genpose2_tpu_torch" / "ops" / "csrc"
 SMEM_LIMIT = 232448  # 227 KB: the dynamic shared memory of one H100 block
@@ -26,6 +26,8 @@ RK4_FIELDS = ("rows", "nbuf", "ring_elems", "dpad", "ldp", "ldq", "w2_rows", "sm
 SA_FIELDS = ("rows", "centroids", "nbuf", "ring_elems", "lda", "ldb", "max_cout", "idx_stride", "smem_bytes",
              "off_acc", "off_xyz", "off_idx", "off_nrow", "off_rstart", "off_rowc", "off_rowp",
              "off_a", "off_b", "off_ring")
+RELPE_FIELDS = ("heads", "warps", "tq", "kc", "nbuf", "dp", "ldkv", "ldb", "blocks", "smem_bytes",
+                "off_cst", "off_qxyz", "off_kxyz", "off_bias", "off_k", "off_v")
 
 
 @pytest.fixture(scope="module")
@@ -41,6 +43,7 @@ def plan_lib(tmp_path_factory):
     lib.gp2_rk4_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.gp2_sa_plan.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
+    lib.gp2_relpe_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
@@ -149,3 +152,53 @@ def test_sa_plan(plan_lib, bf16, name, mlps, nsamples, n_staged):
 def test_sa_plan_refuses(plan_lib):
     assert sa_plan(plan_lib, ((32, 48, 40),) * 5, (16,) * 5, 100, True) is None  # 5 scales
     assert sa_plan(plan_lib, ((32, 4096, 40),), (16,), 100, False) is None  # too wide
+
+
+def relpe_plan(lib, B, M, C, bf16, sms=H100_SMS):
+    out = (ctypes.c_int * len(RELPE_FIELDS))()
+    if lib.gp2_relpe_plan(B, M, C, 8, int(bf16), sms, out) != 0:
+        return None
+    return dict(zip(RELPE_FIELDS, out))
+
+
+_TINY = tiny_test_config().model.pointnet2
+# (name, B, M, C) of rel-PE launches: the Fus encoder's four stages (M
+# points, C = the stage's summed widths, 8 heads of D = C / 8) at a
+# request's B = 64 and a frame call's B = 12, the tiny configs' stages, the
+# gpu tests' M = 37 and a ragged M = 200
+RELPE_CASES = [(f"stage{i}_B{b}", b, m, sum(w[-1] for w in CFG.mlps[i]))
+               for b in (64, 12) for i, m in enumerate(CFG.npoints) if m is not None]
+RELPE_CASES += [(f"tiny_stage{i}", 4, m, sum(w[-1] for w in _TINY.mlps[i]))
+                for i, m in enumerate(_TINY.npoints) if m is not None]
+RELPE_CASES += [("test_M37", 2, 37, 32), ("ragged_M200", 2, 200, 96)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("name,B,M,C", RELPE_CASES, ids=[c[0] for c in RELPE_CASES])
+def test_relpe_plan(plan_lib, bf16, name, B, M, C):
+    p = relpe_plan(plan_lib, B, M, C, bf16)
+    assert p is not None
+    D, es = C // 8, 2 if bf16 else 4
+    # D padded to the mma's depth (bf16 m16n8k16, float32 m16n8k8), at most 128
+    assert p["dp"] >= D and p["dp"] % (16 if bf16 else 8) == 0 and p["dp"] <= 128
+    assert p["heads"] in (8, 4, 2, 1) and p["warps"] in (8, 4)
+    assert p["tq"] == 16 * p["warps"] // p["heads"]  # one (head, 16 rows) task a warp
+    assert p["kc"] == 32 and p["nbuf"] == 2
+    assert p["ldkv"] == p["dp"] + (8 if bf16 else 4) and p["ldb"] == p["kc"] + 8
+    assert p["blocks"] == B * -(-M // p["tq"]) * (8 // p["heads"])
+    if name.startswith("stage0"):  # a request and a frame call fill the 132 SMs
+        assert p["blocks"] >= H100_SMS and p["heads"] == 8
+    if name.startswith("stage"):  # the flagship stages leave room for two blocks an SM
+        assert 2 * p["smem_bytes"] <= SMEM_LIMIT
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    kv = es * p["nbuf"] * p["heads"] * p["kc"] * p["ldkv"]
+    _assert_layout(p, [("off_cst", 4 * r4(16 * 24 + 8)), ("off_qxyz", 4 * r4(3 * p["tq"])),
+                       ("off_kxyz", 4 * r4(p["nbuf"] * p["kc"] * 3)),
+                       ("off_bias", 4 * p["heads"] * p["tq"] * p["ldb"]),
+                       ("off_k", kv), ("off_v", kv)])
+
+
+def test_relpe_plan_refuses(plan_lib):
+    assert relpe_plan(plan_lib, 2, 64, 2048, True) is None  # D = 256: past the widest mma depth
+    assert relpe_plan(plan_lib, 2, 64, 72, False) is None   # D = 9: odd
+    assert relpe_plan(plan_lib, 0, 64, 96, False) is None
