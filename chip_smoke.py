@@ -23,7 +23,9 @@ Phases, one JSON line each:
   kernels   each kernel against its plain version on the card, at the shapes
             of the main paths, in float32 and in bf16 (discrete outputs exact);
             ball query and FPS also at each grouped stage of the training
-            path's module forward, and ball query's edge cases; the per-scale
+            path's module forward, ball query also at the batch-192 train
+            step's stages and its edge cases, FPS also at 2,048 points and at
+            a frame call's 12 objects; the per-scale
             SA kernel and the SA kernel from indices at the dense
             configuration's stage 0 (B=64, N=2048, M=512, both scales) and
             at their edge cases; the ViT's switch kernels: LayerNorm at
@@ -70,7 +72,9 @@ Phases, one JSON line each:
             paths' shapes, with the bound from this run's shapes and data; the
             three ViT attention entries also at a frame call's batch (12
             objects), beside SDPA at the same batch, and RK4 at a tracking
-            call's shape; float32 products bounded at 3xTF32's rate;
+            call's shape; FPS and ball query (per stage) also by their device
+            time (torch.profiler), FPS also per pick and at a frame call's
+            batch; float32 products bounded at 3xTF32's rate;
   profile   torch.profiler device time by kernel name over one bf16 flagship
             request, one bf16 dino='global' request, one flagship train step
             and the device part of one bf16 tracking call of each frame
@@ -141,21 +145,33 @@ def cuda_ms(fn, reps, warmup=1):
 
 
 def device_ms(fn, kernel, reps=5):
-    """Device time (ms) of the CUDA kernels whose name holds ``kernel`` per
-    call of fn, by torch.profiler: the card's own time, without the host
-    work between launches that an event pair around the calls also counts."""
+    """Device time (ms) of the one launch of the CUDA kernel whose name holds
+    ``kernel`` in each call of fn, by torch.profiler: the card's own time,
+    without the host work between launches that an event pair around the
+    calls also counts. The profiler now and then drops some of a kernel's
+    events: a read with fewer launches than calls is taken again, up to three
+    times, and the time is the mean over the launches recorded, never a sum
+    divided by calls it did not record. Raises when no launch was recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and kernel in ev.key) / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+        count, us = sum(ev.count for ev in evs), sum(ev.device_time_total for ev in evs)
+        if count >= reps:
+            break
+    if count == 0 or us <= 0:
+        raise RuntimeError(f"device_ms: the profiler recorded no launch of {kernel!r} "
+                           f"in {reps} calls, three times")
+    return us / 1e3 / count
 
 
 def bound_ms(nbytes, ops):
@@ -628,6 +644,15 @@ def main():
         new_k = gather_points(xyz_k, fps_plain(xyz_k, npoint)).contiguous()
         bq_stages += [(xyz_k, new_k, r, ns) for r, ns in zip(radii, nsamples)]
         xyz_k = new_k
+    # the same eight ball query shapes at the batch-192 train step (clouds of
+    # a generator of their own: the draws of `gen` stay as they were)
+    bq_stages_192, xyz_k = [], object_clouds(torch.Generator().manual_seed(SEED + 192), dev, 192)
+    for npoint, radii, nsamples in zip(fus_cfg.npoints, fus_cfg.radii, fus_cfg.nsamples):
+        if npoint is None:
+            break
+        new_k = gather_points(xyz_k, fps_plain(xyz_k, npoint)).contiguous()
+        bq_stages_192 += [(xyz_k, new_k, r, ns) for r, ns in zip(radii, nsamples)]
+        xyz_k = new_k
     bq_edges = {  # no hit at all; N not a multiple of 32; nsample above 32; M below a tile
         "zero_hits": (pts0, (S0[:, :100] + 10.0).contiguous(), 0.02, 32),
         "n1000": (pts0[:, :1000].contiguous(), S0[:, :300].contiguous(), 0.04, 32),
@@ -692,15 +717,18 @@ def main():
 
     @phase("kernels")
     def kernels():
-        # ball query at the training path's eight stage shapes and the edge
-        # cases, FPS at the later stages' N; both exact
+        # ball query at the training path's eight stage shapes (B=64 and the
+        # batch-192 step) and the edge cases; FPS at the later stages' N, at
+        # the dense path's 2,048 points and at a frame call's 12 objects; all
+        # exact
         bq_mis, bq_hits = [], []
-        for xyz, nxs, r, ns in list(bq_stages) + list(bq_edges.values()):
+        for xyz, nxs, r, ns in list(bq_stages) + list(bq_edges.values()) + bq_stages_192:
             k, p = ball_query(xyz, nxs, r, ns), ball_query_plain(xyz, nxs, r, ns)
             bq_mis.append(int((k != p).sum()))
             bq_hits.append(float(ball_count_plain(xyz, nxs, r).float().mean()))
+        fps_more = fps_stages[1:] + [(pts_dense, 512), (pts0[:12].contiguous(), 512)]
         fps_mis = [int((furthest_point_sample(x, n) != fps_plain(x, n)).sum())
-                   for x, n in fps_stages[1:]]
+                   for x, n in fps_more]
         results["ball_query"] = {"max_abs_err": float(sum(bq_mis)), "tolerance": "exact"}
         # FPS and ball count (float32 only)
         idx_k = furthest_point_sample(pts0, 512)
@@ -715,10 +743,12 @@ def main():
                 "ball_count_mismatches": bc_mismatch, "sa": {}, "rk4": {}, "relpe": {},
                 "residual_ln": {}, "vit": {},
                 "ball_query": {"cases": [f"N{x.shape[1]}_M{c.shape[1]}_r{r}_S{ns}"
-                                         for x, c, r, ns in bq_stages] + list(bq_edges),
+                                         for x, c, r, ns in bq_stages] + list(bq_edges)
+                               + [f"B192_N{x.shape[1]}_M{c.shape[1]}_r{r}_S{ns}"
+                                  for x, c, r, ns in bq_stages_192],
                                "index_mismatches": bq_mis, "mean_hits": bq_hits},
-                "fps_train_stages": {"N": [x.shape[1] for x, _ in fps_stages[1:]],
-                                     "index_mismatches": fps_mis}}
+                "fps_more": {"B_N": [list(x.shape[:2]) for x, _ in fps_more],
+                             "index_mismatches": fps_mis}}
         ok = fps_mismatch == 0 and bc_mismatch == 0 and not any(bq_mis) and not any(fps_mis)
         for dtype, (s, _, _) in paths["none"].items():
             pcfg = s.cfg.model.pointnet2
@@ -1357,10 +1387,30 @@ def main():
                           "library_ms": library_ms, **extra})
 
         csrc = "genpose2_tpu_torch/ops/csrc/"
-        ms = cuda_ms(lambda: furthest_point_sample(pts0, 512), 20)
+        # FPS (1,024 -> 512) at the request's B=64 and a frame call's B=12,
+        # and the dense path's 2,048 points: events around back-to-back
+        # wrapper calls, the kernel's device time, and the device time of
+        # one pick: (device ms at 512 picks - at 2 picks) / 510
+        fps_t = {}
+        for label, x in (("B64", pts0), ("B12", pts0[:N_OBJ].contiguous()),
+                         ("dense_B64", pts_dense)):
+            d512 = device_ms(lambda: furthest_point_sample(x, 512), "fps_kernel")
+            d2 = device_ms(lambda: furthest_point_sample(x, 2), "fps_kernel")
+            if d512 <= d2:
+                raise RuntimeError(f"fps {label}: 512 picks took {d512} ms, 2 picks {d2} ms")
+            fps_t[label] = {"ms": cuda_ms(lambda: furthest_point_sample(x, 512), 20),
+                            "device_ms": d512, "device_ms_2picks": d2,
+                            "per_pick_us": 1e3 * (d512 - d2) / 510}
+        per_stage["fps"] = fps_t
         pms = cuda_ms(lambda: fps_plain(pts0, 512), 2)
-        entry("fps", csrc + "fps.cu", "genpose2_tpu/ops/fps.py:114",
-              ms, pms, B * N * 12 + B * 512 * 4, {"float32": 511 * B * N * 10})
+        fb = (N_OBJ * N * 12 + N_OBJ * 512 * 4, {"float32": 511 * N_OBJ * N * 10})
+        entry("fps", csrc + "fps.cu", "genpose2_tpu/ops/fps.py:114", fps_t["B64"]["ms"], pms,
+              B * N * 12 + B * 512 * 4, {"float32": 511 * B * N * 10},
+              device_ms=fps_t["B64"]["device_ms"], per_pick_us=fps_t["B64"]["per_pick_us"],
+              frame_batch={"B": N_OBJ, "ms": fps_t["B12"]["ms"],
+                           "device_ms": fps_t["B12"]["device_ms"],
+                           "per_pick_us": fps_t["B12"]["per_pick_us"],
+                           "bound_ms": bound_ms(*fb)[0]})
         ms = cuda_ms(lambda: ball_count(pts0, S0, 0.02), 50)
         pms = cuda_ms(lambda: ball_count_plain(pts0, S0, 0.02), 10)
         entry("ball_count", csrc + "ball_count.cu",
@@ -1370,9 +1420,10 @@ def main():
         # forward. Operations: 8 per distance test (3 subtractions, 3
         # products, 2 sums), over the points each centroid scans before its
         # nsample-th hit (all N when it has fewer hits), from this run's data
-        ks, ps, bs, nb, ops = [], [], [], 0, 0
+        ks, ds, ps, bs, nb, ops = [], [], [], [], 0, 0
         for xyz, nxs, r, ns in bq_stages:
             ks.append(cuda_ms(lambda: ball_query(xyz, nxs, r, ns), 20))
+            ds.append(device_ms(lambda: ball_query(xyz, nxs, r, ns), "ball_query_kernel"))
             ps.append(cuda_ms(lambda: ball_query_plain(xyz, nxs, r, ns), 2))
             Bn, Nn, Mn = xyz.shape[0], xyz.shape[1], nxs.shape[1]
             idx = ball_query_plain(xyz, nxs, r, ns)
@@ -1382,9 +1433,10 @@ def main():
             nb_, ops_ = 12 * Bn * (Nn + Mn) + 4 * Bn * Mn * ns, 8 * int(scanned.sum())
             bs.append(bound_ms(nb_, {"float32": ops_})[0])
             nb, ops = nb + nb_, ops + ops_
-        per_stage["ball_query"] = {"kernel_ms": ks, "plain_ms": ps, "bound_ms": bs}
+        per_stage["ball_query"] = {"kernel_ms": ks, "device_ms": ds, "plain_ms": ps,
+                                   "bound_ms": bs}
         entry("ball_query", csrc + "ball_query.cu", "genpose2_tpu/ops/ball_query_pallas.py:139",
-              sum(ks), sum(ps), nb, {"float32": ops})
+              sum(ks), sum(ps), nb, {"float32": ops}, device_ms=sum(ds))
         for dtype, name in (("float32", "fused_sa_stage"), ("bfloat16", "fused_sa_stage.bf16")):
             stages = results[name]["stages"]
             ks, ps, bs, nb, ops = [], [], [], 0, {}
@@ -1640,8 +1692,10 @@ def main():
                       "scale launches of the dense stage 0; library_ms of vit_attention_rope: "
                       "the elementwise rotation of q and k, then SDPA; the ViT attention "
                       "and relpe_attention entries' frame_batch: the same launches at a frame "
-                      "call's batch; relpe_attention entries' device_ms: the kernel's own time by "
-                      "torch.profiler (ms: events around wrapper calls); fused_rk4 "
+                      "call's batch; relpe_attention, fps and ball_query entries' device_ms: "
+                      "the kernel's own time by torch.profiler (ms: events around wrapper "
+                      "calls); fps: 1,024 -> 512 points, per_pick_us the device time of one "
+                      "pick, frame_batch at a frame call's 12 objects; fused_rk4 "
                       "entries' tracking: the kernel at a tracking call's shape; "
                       "residual_layernorm: its "
                       "eight "

@@ -15,68 +15,121 @@
 // against 1.2 MB of input and 4.2 MB of output; a centroid stops scanning
 // once it has nsample hits.
 //
-// Design: one block per (object, tile of kTile centroids); the block stages
-// its object's points in shared memory (12 bytes a point). One warp per
-// centroid scans the points 32 at a time: a ballot of the lanes' hits, and
-// the popcount of the lower lanes' bits gives each hit its rank, so hits are
-// written in ascending order with no second pass.
+// Design: one block per (object, tile of centroids), a warp per centroid;
+// plan.cuh:ball_query_plan gives a block 8 warps (fewer where the grid would
+// leave SMs idle): timed on the H100, small blocks balance the card best,
+// and staging a cloud costs less than a scan. The block stages its
+// object's cloud once, as it lies in memory (3 floats a point, by 16-byte
+// copies): a lane's stride-3 reads of it are free of bank conflicts, 3 being
+// odd. A warp scans a window of 32 x W points a step (W = 4,
+// plan.cuh:kBallQueryWindow): sub-slot w holds points
+// base + 32 w + lane, so each lane makes W independent distance tests (W-way
+// ILP), with no bounds test in a window that lies inside N. One vote a window
+// skips the windows without a hit (most of them at the wide stages); else a
+// ballot per sub-slot, and a hit's rank is the count so far, plus the
+// popcounts of the window's earlier sub-slots, plus the popcount of the lower
+// lanes' bits: hits are written in ascending order with no second pass, and
+// the early exit is tested once a window.
+#include <stdint.h>
+
 #include "common.cuh"
+#include "plan.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kTile = 32;  // centroids per block, kTile / kWarps per warp
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int W = kBallQueryWindow;
 
-__global__ void __launch_bounds__(kWarps * 32)
-ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz, int N,
-                  int M, float r2, int nsample, int* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  float* ys = xs + N;
-  float* zs = ys + N;
-  const int b = blockIdx.y;
-  const float* p = xyz + static_cast<size_t>(b) * N * 3;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    xs[i] = p[3 * i + 0];
-    ys[i] = p[3 * i + 1];
-    zs[i] = p[3 * i + 2];
+// The object's cloud into shared memory as it lies in device memory.
+__device__ __forceinline__ void stage_cloud(const float* p, int N, float* pts) {
+  const int n3 = 3 * N;
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    float4* s4 = reinterpret_cast<float4*>(pts);
+    for (int i = threadIdx.x; i < n3 / 4; i += blockDim.x) s4[i] = p4[i];
+    for (int i = n3 / 4 * 4 + threadIdx.x; i < n3; i += blockDim.x) pts[i] = p[i];
+  } else {  // an object that starts off a 16-byte boundary (odd N)
+    for (int i = threadIdx.x; i < n3; i += blockDim.x) pts[i] = p[i];
   }
   __syncthreads();
+}
+
+// Bit w: point base + 32 w + lane is a hit. CHECK: the window passes N.
+template <bool CHECK>
+__device__ __forceinline__ unsigned window_hits(const float* pts, int base, int lane, int N,
+                                                float cx, float cy, float cz, float r2) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int i = base + 32 * w + lane;
+    if ((!CHECK || i < N) &&
+        sq_dist(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], cx, cy, cz) < r2)
+      bits |= 1u << w;
+  }
+  return bits;
+}
+
+__global__ void __launch_bounds__(256)
+ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz, int N,
+                  int M, float r2, int nsample, BallQueryPlan plan, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* pts = reinterpret_cast<float*>(smem + plan.off_xyz);
+  const int b = blockIdx.y;
+  stage_cloud(xyz + static_cast<size_t>(b) * N * 3, N, pts);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = blockIdx.x * plan.warps + warp;
+  if (m >= M) return;  // the block's last barrier is behind
   const unsigned lower = (1u << lane) - 1u;
-  for (int t = warp; t < kTile; t += kWarps) {
-    const int m = blockIdx.x * kTile + t;
-    if (m >= M) break;  // uniform across the warp
-    const float* c = new_xyz + (static_cast<size_t>(b) * M + m) * 3;
-    const float cx = c[0], cy = c[1], cz = c[2];
-    int* o = out + (static_cast<size_t>(b) * M + m) * nsample;
-    int cnt = 0, first = 0;  // the same in every lane
-    for (int base = 0; base < N && cnt < nsample; base += 32) {
-      const int i = base + lane;
-      const bool hit = i < N && sq_dist(xs[i], ys[i], zs[i], cx, cy, cz) < r2;
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+  const float* c = new_xyz + (static_cast<size_t>(b) * M + m) * 3;
+  const float cx = c[0], cy = c[1], cz = c[2];
+  int* o = out + (static_cast<size_t>(b) * M + m) * nsample;
+  int cnt = 0, first = -1;  // the same in every lane
+  for (int base = 0; base < N && cnt < nsample; base += 32 * W) {
+    const unsigned bits = base + 32 * W <= N
+                              ? window_hits<false>(pts, base, lane, N, cx, cy, cz, r2)
+                              : window_hits<true>(pts, base, lane, N, cx, cy, cz, r2);
+    if (!__any_sync(kFull, bits != 0u)) continue;  // most windows hold no hit
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const unsigned mask = __ballot_sync(kFull, (bits >> w) & 1u);
       if (mask == 0u) continue;
-      if (cnt == 0) first = base + __ffs(mask) - 1;
       const int rank = cnt + __popc(mask & lower);
-      if (hit && rank < nsample) o[rank] = i;
+      if (((bits >> w) & 1u) && rank < nsample) o[rank] = base + 32 * w + lane;
+      if (first < 0) first = base + 32 * w + __ffs(mask) - 1;
       cnt += __popc(mask);
     }
-    for (int s = min(cnt, nsample) + lane; s < nsample; s += 32) o[s] = first;
   }
+  if (first < 0) first = 0;
+  for (int s = min(cnt, nsample) + lane; s < nsample; s += 32) o[s] = first;
+}
+
+cudaError_t launch_plan(const float* xyz, const float* new_xyz, int B, int N, int M, float r2,
+                        int nsample, const BallQueryPlan& plan, int* out, void* stream) {
+  if (plan.warps < 1 || plan.warps > 8 || plan.smem_bytes > kSmemLimit)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(ball_query_kernel, plan.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + plan.warps - 1) / plan.warps, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ball_query_kernel<<<grid, plan.warps * 32, plan.smem_bytes, s>>>(xyz, new_xyz, N, M, r2,
+                                                                   nsample, plan, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // xyz (B, N, 3), new_xyz (B, M, 3) f32 -> out (B, M, nsample) i32, on
-// `stream`. Returns a CUDA error code.
+// `stream`, with the plan of plan.cuh:ball_query_plan. Returns a CUDA error
+// code.
 extern "C" int gp2_ball_query(const float* xyz, const float* new_xyz, int B, int N, int M,
                               float r2, int nsample, int* out, void* stream) {
-  const size_t smem = static_cast<size_t>(3) * N * sizeof(float);
-  cudaError_t err = allow_smem(ball_query_kernel, smem);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kTile - 1) / kTile, B);
-  ball_query_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, new_xyz, N, M, r2, nsample, out);
-  return static_cast<int>(cudaGetLastError());
+  BallQueryPlan plan;
+  if (ball_query_plan(B, N, M, nsample, sms, &plan) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_plan(xyz, new_xyz, B, N, M, r2, nsample, plan, out, stream));
 }

@@ -1,5 +1,6 @@
 // Launch plans of the tensor-core kernels (ode_rk4.cu, fused_sa.cu,
-// relpe_attention.cu): row or query tile, ring depth, heads of a block and
+// relpe_attention.cu) and of FPS and ball query (fps.cu, ball_query.cu):
+// row or query tile, ring depth, heads, warps or centroids of a block and
 // the shared-memory layout, from the shapes alone.
 //
 // Plain C++ with no CUDA in it, so that a host compiler builds it too:
@@ -280,6 +281,89 @@ inline int relpe_plan(int B, int M, int C, int H, int bf16, int num_sms, RelpePl
   return 0;
 }
 
+// ------------------------------------------------------------------ FPS
+
+constexpr int kFpsMaxWarps = 16;
+constexpr int kFpsMaxP = 32;        // points a thread holds in registers
+constexpr int kFpsMaxSlots = 8192;  // warps x 32 x p: 16 warps at 16 points or 8 at 32 stay
+                                    // within the SM's 65,536 registers
+
+struct FpsPlan {
+  int warps;  // warps of a block, one block per object
+  int p;      // points a thread holds in registers: warps x 32 x p >= N
+  int smem_bytes;
+  // byte offsets: f32 xs, ys, zs (N rounded up to 4 each); the warps'
+  // partial values and indices (2 x warps ints each, double-buffered by the
+  // pick's parity)
+  int off_x, off_y, off_z, off_val, off_idx;
+};
+
+GP2_HD void fps_layout(int N, int warps, int p, FpsPlan* q) {
+  q->warps = warps;
+  q->p = p;
+  q->off_x = 0;
+  q->off_y = q->off_x + 4 * round_up(N, 4);
+  q->off_z = q->off_y + 4 * round_up(N, 4);
+  q->off_val = q->off_z + 4 * round_up(N, 4);
+  q->off_idx = q->off_val + 4 * round_up(2 * warps, 4);
+  q->smem_bytes = q->off_idx + 4 * round_up(2 * warps, 4);
+}
+
+// (N, B objects): 0 and *q filled, or -1 when N is out of range. The
+// fastest of the (warps, P) variants timed on the H100 (PERF.md section 6):
+// to 256 points one warp (no block barrier a pick) with N / 32 points
+// a thread; above, 4 warps with N / 128 points a thread, the warps doubled
+// instead while a thread would hold more than 8 (more than 16 where B
+// exceeds the SMs, so that two blocks share an SM). fps.cu instantiates
+// warps 1-16 and P 4-32, powers of two, at most kFpsMaxSlots a block.
+inline int fps_plan(int N, int B, int num_sms, FpsPlan* q) {
+  if (N < 1 || N > kFpsMaxSlots || B < 1 || num_sms < 1) return -1;
+  int warps = 1, p = 4;
+  if (N <= 32 * 8) {
+    while (32 * p < N) p *= 2;
+  } else {
+    const int p_max = B > num_sms ? 16 : 8;
+    warps = 4;
+    while (warps * 32 * p < N) p *= 2;
+    while (p > p_max && warps < kFpsMaxWarps) {
+      p /= 2;
+      warps *= 2;
+    }
+  }
+  fps_layout(N, warps, p, q);
+  return q->smem_bytes <= kSmemLimit ? 0 : -1;
+}
+
+// ----------------------------------------------------------- ball query
+
+constexpr int kBallQueryWindow = 4;  // sub-slots of 32 points a warp tests a step
+
+struct BallQueryPlan {
+  int warps;   // warps of a block, one centroid each
+  int blocks;  // B x ceil(M / warps)
+  int smem_bytes;
+  int off_xyz;  // byte offset of the object's cloud as it lies in memory (3 N f32)
+};
+
+GP2_HD void ball_query_layout(int B, int N, int M, int warps, BallQueryPlan* q) {
+  q->warps = warps;
+  q->blocks = B * ((M + warps - 1) / warps);
+  q->off_xyz = 0;
+  q->smem_bytes = q->off_xyz + 4 * round_up(3 * N, 4);
+}
+
+// (B, N, M, nsample): 0 and *q filled, or -1. 8 warps a block, fewer where 8
+// would leave SMs without a block: of the block sizes timed on the H100
+// (PERF.md section 6), small blocks balance the card best, and
+// staging a cloud costs less than a scan.
+inline int ball_query_plan(int B, int N, int M, int nsample, int num_sms, BallQueryPlan* q) {
+  if (B < 1 || N < 1 || M < 1 || nsample < 1 || num_sms < 1) return -1;
+  int warps = 8;
+  while (warps > 1 && static_cast<long long>(B) * ((M + warps - 1) / warps) < num_sms) warps /= 2;
+  ball_query_layout(B, N, M, warps, q);
+  return q->smem_bytes <= kSmemLimit ? 0 : -1;
+}
+
 #ifdef GP2_PLAN_EXPORTS
 // The plans as int arrays, in the order of the structs' fields.
 extern "C" int gp2_relpe_plan(int B, int M, int C, int H, int bf16, int num_sms, int* out) {
@@ -293,5 +377,11 @@ extern "C" int gp2_sa_plan(int n_scales, const int* nsample, const int* num_laye
                            const int* widths, int n_staged, int bf16, int* out) {
   return sa_plan(n_scales, nsample, num_layers, widths, n_staged, bf16,
                  reinterpret_cast<SaPlan*>(out));
+}
+extern "C" int gp2_fps_plan(int N, int B, int num_sms, int* out) {
+  return fps_plan(N, B, num_sms, reinterpret_cast<FpsPlan*>(out));
+}
+extern "C" int gp2_ball_query_plan(int B, int N, int M, int nsample, int num_sms, int* out) {
+  return ball_query_plan(B, N, M, nsample, num_sms, reinterpret_cast<BallQueryPlan*>(out));
 }
 #endif

@@ -70,13 +70,35 @@ def _randomize(module, seed):
     return module
 
 
-def test_fps_kernel_matches_plain(card):
+@pytest.mark.parametrize("cloud", ["uniform", "duplicates", "all_equal"])
+@pytest.mark.parametrize("B", [1, 4, 12, 64, 140])  # 140: more objects than SMs
+@pytest.mark.parametrize("N", [77, 128, 1000, 1024, 2048, 4096, 8192])  # 4096, 8192: 16 warps
+def test_fps_kernel_matches_plain(card, N, B, cloud):
     rng = np.random.default_rng(7)
-    xyz = rng.uniform(-0.5, 0.5, size=(4, 1024, 3)).astype(np.float32)
-    xyz[:, 512:600] = xyz[:, :88]  # duplicates tie; ties go to the lowest index
+    xyz = rng.uniform(-0.5, 0.5, size=(B, N, 3)).astype(np.float32)
+    if cloud == "duplicates":  # exact copies tie; ties go to the lowest index
+        k = min(88, N - N // 2)
+        xyz[:, N // 2:N // 2 + k] = xyz[:, :k]
+    elif cloud == "all_equal":  # every distance 0: every pick is index 0
+        xyz[:] = xyz[:, :1]
     x = torch.from_numpy(xyz).to(card)
-    torch.testing.assert_close(furthest_point_sample(x, 256), fps_plain(x, 256), rtol=0, atol=0)
-    assert _cuda.launch_counts["fps"] >= 1
+    for npoint in (1, 2, N // 4, N):
+        before = _cuda.launch_counts["fps"]
+        got = furthest_point_sample(x, npoint)
+        assert _cuda.launch_counts["fps"] == before + 1
+        assert got.dtype == torch.int32 and got.shape == (B, npoint)
+        torch.testing.assert_close(got, fps_plain(x, npoint), rtol=0, atol=0)
+        if cloud == "all_equal":
+            assert not got.any()
+
+
+def test_fps_kernel_refuses_past_its_plan(card):
+    """N past the plan's 8,192 register slots raises; it never runs the plain version."""
+    x = torch.zeros((1, 8193, 3), device=card)
+    before = _cuda.launch_counts["fps"]
+    with pytest.raises(RuntimeError, match="fps"):
+        furthest_point_sample(x, 16)
+    assert _cuda.launch_counts["fps"] == before
 
 
 def test_ball_count_kernel_matches_plain(card):
@@ -93,6 +115,11 @@ def test_ball_count_kernel_matches_plain(card):
     (2, 512, 256, 0.3, 64, False),   # nsample above 32, above many hit counts
     (3, 77, 20, 0.25, 16, False),    # M below one block's tile
     (2, 256, 40, 0.1, 8, True),      # no hit at all: every slot 0
+    (2, 33, 20, 0.3, 16, False),     # one point past a 32-point sub-slot
+    (2, 127, 50, 0.3, 32, False),    # one point short of a 128-point window
+    (2, 129, 50, 0.3, 32, False),    # one point past it
+    (64, 1024, 509, 0.05, 32, False),  # M not a multiple of the plan's 8 centroids a block
+    (192, 256, 128, 0.08, 32, False),  # the batch-192 train step's stage 2 shape
 ])
 def test_ball_query_kernel_matches_plain(card, B, N, M, radius, nsample, far):
     rng = np.random.default_rng(18)
@@ -104,6 +131,27 @@ def test_ball_query_kernel_matches_plain(card, B, N, M, radius, nsample, far):
     torch.testing.assert_close(got, ball_query_plain(xyz, new_xyz, radius, nsample),
                                rtol=0, atol=0)
     assert _cuda.launch_counts["ball_query"] == before + 1
+
+
+@pytest.mark.parametrize("last", [31, 127, 128, 255, 511])
+@pytest.mark.parametrize("nsample", [16, 32])
+def test_ball_query_window_edges(card, last, nsample):
+    """Centroid 0's nsample-th hit is point ``last``: the last point of a
+    32-point sub-slot (31), of a 128-point window (127, 255, 511) or the first
+    of the next (128); hits after it are dropped, the rest stay in order."""
+    rng = np.random.default_rng(last + nsample)
+    B, N, M = 2, 512, 37
+    xyz = rng.uniform(-0.5, 0.5, size=(B, N, 3)).astype(np.float32)
+    new_xyz = xyz[:, :M].copy()
+    new_xyz[:, 0] = 5.0
+    for b in range(B):
+        hits = np.sort(rng.choice(last, nsample - 1, replace=False)).tolist() + [last]
+        hits += rng.choice(np.arange(last + 1, N), min(5, N - 1 - last), replace=False).tolist()
+        xyz[b, hits] = 5.0 + rng.uniform(-0.02, 0.02, size=(len(hits), 3))
+    x, c = torch.from_numpy(xyz).to(card), torch.from_numpy(new_xyz).to(card)
+    got = ball_query(x, c, 0.05, nsample)
+    torch.testing.assert_close(got, ball_query_plain(x, c, 0.05, nsample), rtol=0, atol=0)
+    assert (got[:, 0, -1] == last).all()
 
 
 @pytest.mark.parametrize("bf16", [False, True])

@@ -1,12 +1,12 @@
-"""The launch plans of the tensor-core kernels (ops/csrc/plan.cuh), on the CPU.
+"""The launch plans of the port's kernels (ops/csrc/plan.cuh), on the CPU.
 
 plan.cuh is plain C++: the host compiler builds it here into a small library
-with its C functions exported, so the plans that ode_rk4.cu, fused_sa.cu and
-relpe_attention.cu launch with are checked without a card: for the flagship
-request, a tracking or frame call, the dense configuration and the tests'
-shapes, each plan fits a block's 227 KB of shared memory, its sections do
-not overlap and start 16-byte aligned, and the tiles are the ones the source
-notes describe.
+with its C functions exported, so the plans that ode_rk4.cu, fused_sa.cu,
+relpe_attention.cu, fps.cu and ball_query.cu launch with are checked without
+a card: for the flagship request, a tracking or frame call, the dense
+configuration, the training path and the tests' shapes, each plan fits a
+block's 227 KB of shared memory, its sections do not overlap and start
+16-byte aligned, and the tiles are the ones the source notes describe.
 """
 
 import ctypes
@@ -28,6 +28,8 @@ SA_FIELDS = ("rows", "centroids", "nbuf", "ring_elems", "lda", "ldb", "max_cout"
              "off_a", "off_b", "off_ring")
 RELPE_FIELDS = ("heads", "warps", "tq", "kc", "nbuf", "dp", "ldkv", "ldb", "blocks", "smem_bytes",
                 "off_cst", "off_qxyz", "off_kxyz", "off_bias", "off_k", "off_v")
+FPS_FIELDS = ("warps", "p", "smem_bytes", "off_x", "off_y", "off_z", "off_val", "off_idx")
+BQ_FIELDS = ("warps", "blocks", "smem_bytes", "off_xyz")
 
 
 @pytest.fixture(scope="module")
@@ -44,6 +46,8 @@ def plan_lib(tmp_path_factory):
     lib.gp2_sa_plan.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
     lib.gp2_relpe_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.gp2_fps_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.gp2_ball_query_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return lib
 
 
@@ -202,3 +206,71 @@ def test_relpe_plan_refuses(plan_lib):
     assert relpe_plan(plan_lib, 2, 64, 2048, True) is None  # D = 256: past the widest mma depth
     assert relpe_plan(plan_lib, 2, 64, 72, False) is None   # D = 9: odd
     assert relpe_plan(plan_lib, 0, 64, 96, False) is None
+
+
+def fps_plan(lib, N, B, sms=H100_SMS):
+    out = (ctypes.c_int * len(FPS_FIELDS))()
+    if lib.gp2_fps_plan(N, B, sms, out) != 0:
+        return None
+    return dict(zip(FPS_FIELDS, out))
+
+
+# FPS launches: the module encoder's chain N = 1024 / 512 / 256 / 128 and the
+# fast encoder's N = 1024 (B = 64 a request, 12 a frame call, 192 the
+# batch-192 train step), the dense path's N = 2048, and the gpu tests' N
+FPS_CASES = [(N, B) for N in (128, 256, 512, 1024, 2048) for B in (12, 64, 192)]
+FPS_CASES += [(N, B) for N in (77, 1000, 4096, 8192) for B in (1, 140)] + [(4096, 64), (8192, 64)]
+
+
+@pytest.mark.parametrize("N,B", FPS_CASES, ids=[f"N{n}_B{b}" for n, b in FPS_CASES])
+def test_fps_plan(plan_lib, N, B):
+    p = fps_plan(plan_lib, N, B)
+    assert p is not None
+    threads = 32 * p["warps"]
+    # every point in a register slot, at most 32 a thread, and under 2N slots
+    assert threads * p["p"] >= N and p["p"] <= 32 and threads * p["p"] < max(2 * N, 256)
+    assert p["warps"] in (1, 2, 4, 8, 16) and p["p"] in (4, 8, 16, 32)
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    _assert_layout(p, [("off_x", 4 * r4(N)), ("off_y", 4 * r4(N)), ("off_z", 4 * r4(N)),
+                       ("off_val", 4 * r4(2 * p["warps"])), ("off_idx", 4 * r4(2 * p["warps"]))])
+
+
+def test_fps_plan_refuses(plan_lib):
+    assert fps_plan(plan_lib, 8193, 1) is None  # past 16 warps x 32 x 16 register slots
+    assert fps_plan(plan_lib, 0, 4) is None
+    assert fps_plan(plan_lib, 1024, 0) is None
+
+
+def bq_plan(lib, B, N, M, nsample, sms=H100_SMS):
+    out = (ctypes.c_int * len(BQ_FIELDS))()
+    if lib.gp2_ball_query_plan(B, N, M, nsample, sms, out) != 0:
+        return None
+    return dict(zip(BQ_FIELDS, out))
+
+
+# ball query launches: both scales of the module encoder's four stages (N / M
+# = 1024 / 512 ... 128 / 64) at B = 64 (a train step, the global request),
+# 192 (the batch-192 train step) and 12 (a global frame call), and the gpu
+# tests' shapes
+BQ_CASES = [(B, n, n // 2, ns) for B in (64, 192, 12) for n in (1024, 512, 256, 128)
+            for ns in CFG.nsamples[0]]
+BQ_CASES += [(2, 33, 20, 16), (2, 127, 50, 32), (2, 129, 50, 32), (64, 1024, 509, 32),
+             (3, 77, 20, 16), (2, 512, 256, 64)]
+
+
+@pytest.mark.parametrize("B,N,M,nsample", BQ_CASES,
+                         ids=[f"B{b}_N{n}_M{m}_S{s}" for b, n, m, s in BQ_CASES])
+def test_ball_query_plan(plan_lib, B, N, M, nsample):
+    p = bq_plan(plan_lib, B, N, M, nsample)
+    assert p is not None
+    assert p["warps"] in (1, 2, 4, 8)
+    assert p["blocks"] == B * -(-M // p["warps"])  # one centroid a warp
+    if B >= 64:  # the training path's stages fill the 132 SMs
+        assert p["blocks"] >= H100_SMS
+    _assert_layout(p, [("off_xyz", 4 * (-(-3 * N // 4) * 4))])  # the cloud, 12 bytes a point
+
+
+def test_ball_query_plan_refuses(plan_lib):
+    assert bq_plan(plan_lib, 2, 20000, 64, 32) is None  # the cloud past 227 KB
+    assert bq_plan(plan_lib, 0, 128, 64, 32) is None
+    assert bq_plan(plan_lib, 2, 128, 64, 0) is None
