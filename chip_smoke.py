@@ -32,7 +32,11 @@ Phases, one JSON line each:
             (64 x 272, 384), the unpadded attention at (64, 261, 384) and the
             in-kernel RoPE attention at the padded flagship shape with the
             flagship's tables; RK4 also at a tracking call's shape (600 rows,
-            100 steps from T0 0.15);
+            100 steps from T0 0.15); past the old size caps (clouds and
+            draws of a generator of their own): FPS at 16,384 and 32,768
+            points, ball count and ball query at 32,768 (B = 12 and 1),
+            exact, and the three ViT attention entries at 1,029 and 1,605
+            tokens (12 crops of 512 and 640 px) in both dtypes;
   request   requests through PoseAgent / ScaleAgent at full width (B=64
             objects, 1024 points, K=50 candidates, 50 RK4 steps from T0=0.55,
             energies at t=1e-5, retain 0.4 with clustering): dino='none' once
@@ -74,7 +78,11 @@ Phases, one JSON line each:
             objects), beside SDPA at the same batch, and RK4 at a tracking
             call's shape; FPS and ball query (per stage) also by their device
             time (torch.profiler), FPS also per pick and at a frame call's
-            batch; float32 products bounded at 3xTF32's rate;
+            batch; ball count also at a frame call's batch and the
+            LayerNorm and ball count entries by queued events (the kernels
+            without the host's gaps); the kernels past the old caps at the
+            kernels phase's long shapes; float32 products bounded at
+            3xTF32's rate;
   profile   torch.profiler device time by kernel name over one bf16 flagship
             request, one bf16 dino='global' request, one flagship train step
             and the device part of one bf16 tracking call of each frame
@@ -122,8 +130,10 @@ def phase(name):
                 return fn(*args, **kw)
             except Exception as e:  # report every phase, then fail at the end
                 FAILED.append(name)
+                trace = traceback.format_exc()[-2000:]
                 emit({"phase": name, "ok": False, "error": f"{type(e).__name__}: {e}",
-                      "trace": traceback.format_exc()[-2000:]})
+                      "trace": trace})
+                print(f"chip_smoke: phase {name} failed:\n{trace}", file=sys.stderr, flush=True)
                 return None
         return run
     return wrap
@@ -144,6 +154,29 @@ def cuda_ms(fn, reps, warmup=1):
     return a.elapsed_time(b) / reps
 
 
+def queued_ms(fn, reps):
+    """ms of one call of fn on the card alone, without the host's gaps: CUDA
+    events around reps calls queued behind a busy-wait kernel (about 10 ms),
+    so that the card runs their launches back to back. No profiler: it reads
+    every launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+class ProfilerMiss(RuntimeError):
+    """torch.profiler recorded no launch of a kernel, three reads running."""
+
+
 def device_ms(fn, kernel, reps=5):
     """Device time (ms) of the one launch of the CUDA kernel whose name holds
     ``kernel`` in each call of fn, by torch.profiler: the card's own time,
@@ -151,7 +184,8 @@ def device_ms(fn, kernel, reps=5):
     calls also counts. The profiler now and then drops some of a kernel's
     events: a read with fewer launches than calls is taken again, up to three
     times, and the time is the mean over the launches recorded, never a sum
-    divided by calls it did not record. Raises when no launch was recorded."""
+    divided by calls it did not record. Raises ProfilerMiss when no launch was
+    recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -169,7 +203,7 @@ def device_ms(fn, kernel, reps=5):
         if count >= reps:
             break
     if count == 0 or us <= 0:
-        raise RuntimeError(f"device_ms: the profiler recorded no launch of {kernel!r} "
+        raise ProfilerMiss(f"device_ms: the profiler recorded no launch of {kernel!r} "
                            f"in {reps} calls, three times")
     return us / 1e3 / count
 
@@ -715,6 +749,8 @@ def main():
         """The folded weights of the first ``rows`` rows."""
         return {**w, "static": w["static"][:rows].contiguous()}
 
+    long_in = {}  # the kernels phase's inputs past the old size caps, timed again
+
     @phase("kernels")
     def kernels():
         # ball query at the training path's eight stage shapes (B=64 and the
@@ -887,6 +923,62 @@ def main():
                                      "tolerance": f"{tol} of max|plain|"}
             line["sa_dense_stage0"][dtype] = {n: {"max_abs_err": e[0], "err_over_max": e[1]}
                                               for n, e in errs.items()}
+        # past the old size caps (clouds and draws of a generator of their
+        # own): FPS on the wide route at 16,384 and 32,768 points, ball count
+        # and ball query with the cloud in tiles at 32,768 (a frame call's 12
+        # objects and one), exact; the three ViT attention entries in key
+        # windows at 1,029 and 1,605 tokens (crops of 512 and 640 px), to the
+        # bounds above
+        lgen = torch.Generator().manual_seed(SEED + 32768)
+        line["long"] = {"fps": {}, "ball_count": {}, "ball_query": {}, "vit": {}}
+        for Bl, Nl, npl in ((12, 16384, 512), (12, 32768, 1024), (1, 32768, 512)):
+            xl = object_clouds(lgen, dev, Bl, Nl)
+            picks = fps_plain(xl, npl)
+            if Bl == 12:
+                long_in[("fps", Nl, npl)] = xl
+                mis = int((furthest_point_sample(xl, npl) != picks).sum())
+                line["long"]["fps"][f"B{Bl}_N{Nl}_S{npl}"] = mis
+                results["fps"]["max_abs_err"] += mis
+            if Nl < 32768:
+                continue
+            cl = gather_points(xl, picks[:, :512]).contiguous()
+            long_in[("ball", Bl)] = (xl, cl)
+            mis = int((ball_count(xl, cl, 0.02) != ball_count_plain(xl, cl, 0.02)).sum())
+            line["long"]["ball_count"][f"B{Bl}_N{Nl}"] = mis
+            results["ball_count"]["max_abs_err"] += mis
+            for r, ns in ((0.02, 32), (0.005, 32)):  # 0.005: few hits, every tile scanned
+                mis = int((ball_query(xl, cl, r, ns) != ball_query_plain(xl, cl, r, ns)).sum())
+                line["long"]["ball_query"][f"B{Bl}_N{Nl}_r{r}_S{ns}"] = mis
+                results["ball_query"]["max_abs_err"] += mis
+        ok = ok and not any(v for d in line["long"].values() for v in d.values())
+        periods = paths["pointwise"]["bfloat16"][0].provider.vit.rope_embed.periods
+        for n_tok in (1029, 1605):
+            g_ = math.isqrt(n_tok - 5)  # cls + 4 storage + a g x g patch grid
+            sn, cs = rope_tables(periods, g_, g_)
+            hd = sn.shape[1]
+            sn = torch.cat([sn.new_zeros(5, hd), sn]).to(dev)
+            cs = torch.cat([cs.new_ones(5, hd), cs]).to(dev)
+            for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+                q, k, v = (torch.randn(12, n_tok, vit_dim, generator=lgen)
+                           .to(dev, compute_dtype_of(dtype)) for _ in range(3))
+                long_in[("vit", n_tok, dtype)] = (q, k, v, sn, cs)
+                sfx = "" if dtype == "float32" else ".bf16"
+                pairs = {"vit_attention": (vit_attention_tm(q, k, v, vit_heads),
+                                           vit_attention_tm_plain(q, k, v, vit_heads)),
+                         "vit_attention_unpadded": (vit_attention(q, k, v, vit_heads),
+                                                    vit_attention_plain(q, k, v, vit_heads)),
+                         "vit_attention_rope": tuple(f(q, k, v, vit_heads, sin=sn, cos=cs)
+                                                     for f in (vit_attention_tm,
+                                                               vit_attention_tm_plain))}
+                for name, (got, want) in pairs.items():
+                    err = max_err(got, want)
+                    within = bool(torch.allclose(got, want, rtol=tol, atol=tol)
+                                  and torch.isfinite(got).all())
+                    ok = ok and within
+                    line["long"]["vit"][f"{name}{sfx}_N{n_tok}"] = {"max_abs_err": err,
+                                                                   "within": within}
+                    results[name + sfx]["max_abs_err"] = max(results[name + sfx]["max_abs_err"],
+                                                             err)
         line["ok"] = ok
         line["tolerance"] = {k: v["tolerance"] for k, v in results.items()}
         emit(line)
@@ -1387,6 +1479,19 @@ def main():
                           "library_ms": library_ms, **extra})
 
         csrc = "genpose2_tpu_torch/ops/csrc/"
+        misses = []
+
+        def kernel_ms(fn, kernel):
+            """device_ms, or where the profiler recorded none of the kernel's
+            launches three reads running (it does so now and then, PERF.md
+            section 7), queued_ms of the same calls; such kernels are named in
+            the timing line's profiler_misses."""
+            try:
+                return device_ms(fn, kernel)
+            except ProfilerMiss:
+                misses.append(kernel)
+                return queued_ms(fn, 20)
+
         # FPS (1,024 -> 512) at the request's B=64 and a frame call's B=12,
         # and the dense path's 2,048 points: events around back-to-back
         # wrapper calls, the kernel's device time, and the device time of
@@ -1394,14 +1499,24 @@ def main():
         fps_t = {}
         for label, x in (("B64", pts0), ("B12", pts0[:N_OBJ].contiguous()),
                          ("dense_B64", pts_dense)):
-            d512 = device_ms(lambda: furthest_point_sample(x, 512), "fps_kernel")
-            d2 = device_ms(lambda: furthest_point_sample(x, 2), "fps_kernel")
+            d512 = kernel_ms(lambda: furthest_point_sample(x, 512), "fps_kernel")
+            d2 = kernel_ms(lambda: furthest_point_sample(x, 2), "fps_kernel")
             if d512 <= d2:
                 raise RuntimeError(f"fps {label}: 512 picks took {d512} ms, 2 picks {d2} ms")
             fps_t[label] = {"ms": cuda_ms(lambda: furthest_point_sample(x, 512), 20),
                             "device_ms": d512, "device_ms_2picks": d2,
                             "per_pick_us": 1e3 * (d512 - d2) / 510}
         per_stage["fps"] = fps_t
+        # past the old cap: the wide route at a frame call's 12 objects
+        fps_long = {}
+        for key, xl in long_in.items():
+            if key[0] != "fps":
+                continue
+            _, Nl, npl = key
+            fps_long[f"N{Nl}_S{npl}"] = {
+                "queued_ms": queued_ms(lambda: furthest_point_sample(xl, npl), 2),
+                "bound_ms": bound_ms(12 * Nl * 12 + 12 * npl * 4,
+                                     {"float32": (npl - 1) * 12 * Nl * 10})[0]}
         pms = cuda_ms(lambda: fps_plain(pts0, 512), 2)
         fb = (N_OBJ * N * 12 + N_OBJ * 512 * 4, {"float32": 511 * N_OBJ * N * 10})
         entry("fps", csrc + "fps.cu", "genpose2_tpu/ops/fps.py:114", fps_t["B64"]["ms"], pms,
@@ -1410,12 +1525,28 @@ def main():
               frame_batch={"B": N_OBJ, "ms": fps_t["B12"]["ms"],
                            "device_ms": fps_t["B12"]["device_ms"],
                            "per_pick_us": fps_t["B12"]["per_pick_us"],
-                           "bound_ms": bound_ms(*fb)[0]})
+                           "bound_ms": bound_ms(*fb)[0]}, long=fps_long)
+        # ball count: the request's B = 64 and a frame call's 12 (M = 512 of
+        # 1,024 points), and 32,768 points past the old cap; 9 operations a
+        # test at the FMA pipes' rate (PERF.md section 7 asks whether 8
+        # unfused operations should count at half of it)
+        def bc_cost(Bt, Nt, Mt=512):
+            return Bt * (Nt + Mt) * 12 + Bt * Mt * 4, {"float32": 9 * Bt * Mt * Nt}
+
         ms = cuda_ms(lambda: ball_count(pts0, S0, 0.02), 50)
+        dms = queued_ms(lambda: ball_count(pts0, S0, 0.02), 50)
         pms = cuda_ms(lambda: ball_count_plain(pts0, S0, 0.02), 10)
+        x12, c12 = pts0[:N_OBJ].contiguous(), S0[:N_OBJ].contiguous()
+        xl, cl = long_in[("ball", 12)]
         entry("ball_count", csrc + "ball_count.cu",
-              "genpose2_tpu/ops/ball_query_pallas.py:178", ms, pms,
-              B * (N + 512) * 12 + B * 512 * 4, {"float32": 9 * B * 512 * N})
+              "genpose2_tpu/ops/ball_query_pallas.py:178", ms, pms, *bc_cost(B, N),
+              queued_ms=dms,
+              frame_batch={"B": N_OBJ, "ms": cuda_ms(lambda: ball_count(x12, c12, 0.02), 50),
+                           "queued_ms": queued_ms(lambda: ball_count(x12, c12, 0.02), 50),
+                           "bound_ms": bound_ms(*bc_cost(N_OBJ, N))[0]},
+              long={"B": 12, "N": xl.shape[1],
+                    "queued_ms": queued_ms(lambda: ball_count(xl, cl, 0.02), 10),
+                    "bound_ms": bound_ms(*bc_cost(12, xl.shape[1]))[0]})
         # ball query: the eight launches of one training step's encoder
         # forward. Operations: 8 per distance test (3 subtractions, 3
         # products, 2 sums), over the points each centroid scans before its
@@ -1423,7 +1554,7 @@ def main():
         ks, ds, ps, bs, nb, ops = [], [], [], [], 0, 0
         for xyz, nxs, r, ns in bq_stages:
             ks.append(cuda_ms(lambda: ball_query(xyz, nxs, r, ns), 20))
-            ds.append(device_ms(lambda: ball_query(xyz, nxs, r, ns), "ball_query_kernel"))
+            ds.append(kernel_ms(lambda: ball_query(xyz, nxs, r, ns), "ball_query_kernel"))
             ps.append(cuda_ms(lambda: ball_query_plain(xyz, nxs, r, ns), 2))
             Bn, Nn, Mn = xyz.shape[0], xyz.shape[1], nxs.shape[1]
             idx = ball_query_plain(xyz, nxs, r, ns)
@@ -1435,8 +1566,13 @@ def main():
             nb, ops = nb + nb_, ops + ops_
         per_stage["ball_query"] = {"kernel_ms": ks, "device_ms": ds, "plain_ms": ps,
                                    "bound_ms": bs}
+        # past the old cap: 32,768 points in eight tiles at a frame call's 12
+        # objects (r = 0.005: few hits, every tile scanned)
+        bq_long = {f"r{r}_S{ns}": queued_ms(lambda r=r, ns=ns: ball_query(xl, cl, r, ns), 10)
+                   for r, ns in ((0.02, 32), (0.005, 32))}
         entry("ball_query", csrc + "ball_query.cu", "genpose2_tpu/ops/ball_query_pallas.py:139",
-              sum(ks), sum(ps), nb, {"float32": ops}, device_ms=sum(ds))
+              sum(ks), sum(ps), nb, {"float32": ops}, device_ms=sum(ds),
+              long={"B": 12, "N": xl.shape[1], "queued_ms": bq_long})
         for dtype, name in (("float32", "fused_sa_stage"), ("bfloat16", "fused_sa_stage.bf16")):
             stages = results[name]["stages"]
             ks, ps, bs, nb, ops = [], [], [], 0, {}
@@ -1560,9 +1696,9 @@ def main():
                 def run12(xyz=x12, q=q12, k=k12, v=v12):
                     return relpe_attention(xyz, q, k, v, pe_mod, H_PE, dtype)
                 ks.append(cuda_ms(run, 10))
-                ds.append(device_ms(run, "relpe_kernel"))
+                ds.append(kernel_ms(run, "relpe_kernel"))
                 ks12.append(cuda_ms(run12, 20))
-                ds12.append(device_ms(run12, "relpe_kernel"))
+                ds12.append(kernel_ms(run12, "relpe_kernel"))
                 ps.append(cuda_ms(lambda: relpe_attention_plain(xyz, qd, kd, vd, pe_mod, H_PE,
                                                                 dtype), 2))
             b12, _ = bound_ms(*relpe_work(N_OBJ, esize, mm_type(dtype)))
@@ -1575,17 +1711,19 @@ def main():
 
         # residual LN: the eight launches of one encoder forward (two per stage);
         # library: F.layer_norm of the precomputed sum x + h (float32)
-        ks, ps, ls, nb, ops = [], [], [], 0, 0
+        ks, ds, ps, ls, nb, ops = [], [], [], [], 0, 0
         for x, h, sc, bi in ln_in:
             s_ = x + h
             ks.append(2 * cuda_ms(lambda: fast_residual_layernorm(x, h, sc, bi), 20))
+            ds.append(2 * queued_ms(lambda: fast_residual_layernorm(x, h, sc, bi), 50))
             ps.append(2 * cuda_ms(lambda: fast_residual_layernorm_plain(x, h, sc, bi), 5))
             ls.append(2 * cuda_ms(lambda: F.layer_norm(s_, s_.shape[-1:], sc, bi, LN_EPS), 20))
             nb += 2 * (3 * x.numel() * 4 + 2 * sc.numel() * 4)
             ops += 2 * 9 * x.numel()
-        per_stage["residual_layernorm"] = {"kernel_ms": ks, "plain_ms": ps, "library_ms": ls}
+        per_stage["residual_layernorm"] = {"kernel_ms": ks, "queued_ms": ds, "plain_ms": ps,
+                                           "library_ms": ls}
         entry("residual_layernorm", csrc + "layernorm.cu", "genpose2_tpu/ops/layernorm.py:126",
-              sum(ks), sum(ps), nb, {"float32": ops}, sum(ls))
+              sum(ks), sum(ps), nb, {"float32": ops}, sum(ls), queued_ms=sum(ds))
 
         # add + LN: one launch on (64, 272, 384) bf16; library: F.layer_norm of
         # the precomputed bf16 sum
@@ -1596,7 +1734,8 @@ def main():
         lms = cuda_ms(lambda: F.layer_norm(s_, s_.shape[-1:], sc.to(torch.bfloat16),
                                            bi.to(torch.bfloat16), LN_EPS), 50)
         entry("add_layernorm", csrc + "layernorm.cu", "genpose2_tpu/ops/layernorm.py:79",
-              ms, pms, 4 * x.numel() * 2 + 3 * g.numel() * 4, {"float32": 11 * x.numel()}, lms)
+              ms, pms, 4 * x.numel() * 2 + 3 * g.numel() * 4, {"float32": 11 * x.numel()}, lms,
+              queued_ms=queued_ms(lambda: fast_add_layernorm(*add_in), 50))
 
         # the three ViT attention entries, one launch each, at the request's
         # B=64 and at a frame call's B=12 (N_OBJ, the first objects of the same
@@ -1665,11 +1804,31 @@ def main():
                 ms, pms, lms, nbytes, ops = measured[B]
                 ms12, _, lms12, nbytes12, ops12 = measured[N_OBJ]
                 b12, _ = bound_ms(nbytes12, ops12)
+                # past the old cap: key windows at 1,029 and 1,605 tokens, 12 crops
+                long = {}
+                for n_tok in (1029, 1605):
+                    q, k, v, sn, cs = long_in[("vit", n_tok, dtype)]
+                    qh, kh, vh = (t.reshape(12, n_tok, vit_heads, hd).transpose(1, 2).contiguous()
+                                  for t in (q, k, v))
+                    if name == "vit_attention_unpadded":
+                        def run(q=q, k=k, v=v):
+                            return vit_attention(q, k, v, vit_heads)
+                    else:
+                        tab = {"sin": sn, "cos": cs} if rope else {}
+
+                        def run(q=q, k=k, v=v, tab=tab):
+                            return vit_attention_tm(q, k, v, vit_heads, **tab)
+                    ms_l, _, lms_l, nbytes_l, ops_l = vit_timing(
+                        dtype, 12, run, None,
+                        lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh),
+                        n_tok, rope)
+                    long[f"N{n_tok}"] = {"ms": ms_l, "library_ms": lms_l,
+                                         "bound_ms": bound_ms(nbytes_l, ops_l)[0]}
                 line = "107" if name == "vit_attention_unpadded" else "203"
                 entry(name + sfx, csrc + "vit_attention.cu",
                       "genpose2_tpu/ops/vit_attention.py:" + line, ms, pms, nbytes, ops, lms,
                       frame_batch={"B": N_OBJ, "ms": ms12, "library_ms": lms12,
-                                   "bound_ms": b12})
+                                   "bound_ms": b12}, long=long)
 
         # the ViT's switch kernels, one launch each. LayerNorm of the stream
         # (64, 272, 384): 8 operations per element; library: F.layer_norm in
@@ -1683,8 +1842,9 @@ def main():
                                                LN_EPS), 50)
             entry("layernorm" + sfx, csrc + "layernorm.cu", "genpose2_tpu/ops/layernorm.py:154",
                   ms, pms, 2 * x.numel() * x.element_size() + 2 * sc.numel() * 4,
-                  {"float32": 8 * x.numel()}, lms)
-        emit({"phase": "timing", "ok": True, "per_stage_ms": per_stage,
+                  {"float32": 8 * x.numel()}, lms,
+                  queued_ms=queued_ms(lambda: fast_layernorm(x, sc, bi), 50))
+        emit({"phase": "timing", "ok": True, "per_stage_ms": per_stage, "profiler_misses": misses,
               "request_ms": [{"path": r["path"], "dtype": r["dtype"], "ms": r["ms"]}
                              for r in per_request],
               "note": "ms of fused_sa_stage and relpe_attention entries: the four stage launches "
@@ -1693,13 +1853,17 @@ def main():
                       "the elementwise rotation of q and k, then SDPA; the ViT attention "
                       "and relpe_attention entries' frame_batch: the same launches at a frame "
                       "call's batch; relpe_attention, fps and ball_query entries' device_ms: "
-                      "the kernel's own time by torch.profiler (ms: events around wrapper "
-                      "calls); fps: 1,024 -> 512 points, per_pick_us the device time of one "
+                      "the kernel's own time by torch.profiler, queued_ms for a kernel that "
+                      "profiler_misses names (ms: events around wrapper calls); fps: 1,024 -> 512 points, per_pick_us the device time of one "
                       "pick, frame_batch at a frame call's 12 objects; fused_rk4 "
                       "entries' tracking: the kernel at a tracking call's shape; "
-                      "residual_layernorm: its "
-                      "eight "
-                      "launches; ball_query: the eight launches of one training step; "
+                      "residual_layernorm: its eight launches; queued_ms (the LayerNorm and "
+                      "ball_count entries, the long keys): the kernels alone, CUDA events "
+                      "around calls queued behind a busy-wait; ball_count's "
+                      "frame_batch: B = 12; long: past the old size caps (fps: 16,384 and "
+                      "32,768 points; ball_count, ball_query: 32,768; the ViT attention "
+                      "entries: 1,029 and 1,605 tokens, library SDPA without RoPE), a frame "
+                      "call's 12 objects; ball_query: the eight launches of one training step; "
                       "launches: summed over the requests, the frame calls and the counted "
                       "train steps"})
 

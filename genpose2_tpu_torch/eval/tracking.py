@@ -23,11 +23,18 @@ from genpose2_tpu_torch.so3.rotations import matrix_to_rot6d_cols
 
 
 class PoseTracker:
+    """``score_state`` / ``energy_state``: train states whose EMA weights
+    every stage runs, as the JAX tracker does; without them the agents' own
+    weights run. ``with_image_features`` needs none: the backbone is frozen."""
+
     def __init__(self, cfg: Config, score_agent, energy_agent=None,
-                 scale_fn: Optional[Callable] = None, T0: float = 0.25, num_steps: int = 100):
+                 scale_fn: Optional[Callable] = None, T0: float = 0.25, num_steps: int = 100,
+                 *, score_state=None, energy_state=None):
         self.cfg = cfg
         self.score_agent = score_agent
+        self.score_state = score_state
         self.energy_agent = energy_agent
+        self.energy_state = energy_state
         self.scale_fn = scale_fn
         self.T0 = T0
         self.num_steps = num_steps
@@ -60,13 +67,14 @@ class PoseTracker:
         init_x[..., -3:] -= batch["pts_center"].to(s.device)
         # the backbone and the score encoder run once per frame
         batch = s.with_image_features(batch)
-        feats = s.extract_features(batch)
+        feats = s.extract_features(batch, state=self.score_state)
         poses = s.sample_candidates(batch, repeat_num=self.cfg.eval.eval_repeat_num, T0=self.T0,
                                     init_x=init_x, num_steps=self.num_steps, features=feats,
-                                    generator=generator, prior=prior)
+                                    generator=generator, prior=prior, state=self.score_state)
         energy = None
         if self.energy_agent is not None:
-            energy = self.energy_agent.get_energy(batch, poses, fixed_t=1e-5)
+            energy = self.energy_agent.get_energy(batch, poses, fixed_t=1e-5,
+                                                  state=self.energy_state)
         ev = self.cfg.eval
         agg = aggregate_candidates(poses, energy, retain_ratio=ev.retain_ratio,
                                    clustering=ev.clustering, eps=ev.clustering_eps,

@@ -30,6 +30,14 @@
 // popcounts of the window's earlier sub-slots, plus the popcount of the lower
 // lanes' bits: hits are written in ascending order with no second pass, and
 // the early exit is tested once a window.
+//
+// Any N: the block stages the cloud in tiles of plan.tile points
+// (plan.cuh:kBallQueryTile; one tile, the whole cloud, to 4,096 points),
+// scanned in ascending order. A warp keeps its count and first hit from one
+// tile to the next, so hits stay in index order; a warp that has its nsample
+// hits waits at the tile barriers and tests nothing more, and the block
+// stops staging once every warp has them. A tile holds whole windows, so no
+// window straddles two tiles.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -40,29 +48,31 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int W = kBallQueryWindow;
 
-// The object's cloud into shared memory as it lies in device memory.
-__device__ __forceinline__ void stage_cloud(const float* p, int N, float* pts) {
-  const int n3 = 3 * N;
-  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
+// Points [t0, t0 + n) of the object's cloud into shared memory as they lie
+// in device memory (3 floats a point).
+__device__ __forceinline__ void stage_tile(const float* p, int t0, int n, float* pts) {
+  const float* src = p + 3 * static_cast<size_t>(t0);
+  const int n3 = 3 * n;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(src);
     float4* s4 = reinterpret_cast<float4*>(pts);
     for (int i = threadIdx.x; i < n3 / 4; i += blockDim.x) s4[i] = p4[i];
-    for (int i = n3 / 4 * 4 + threadIdx.x; i < n3; i += blockDim.x) pts[i] = p[i];
+    for (int i = n3 / 4 * 4 + threadIdx.x; i < n3; i += blockDim.x) pts[i] = src[i];
   } else {  // an object that starts off a 16-byte boundary (odd N)
-    for (int i = threadIdx.x; i < n3; i += blockDim.x) pts[i] = p[i];
+    for (int i = threadIdx.x; i < n3; i += blockDim.x) pts[i] = src[i];
   }
-  __syncthreads();
 }
 
-// Bit w: point base + 32 w + lane is a hit. CHECK: the window passes N.
+// Bit w: staged point base + 32 w + lane is a hit. CHECK: the window passes
+// the n staged points.
 template <bool CHECK>
-__device__ __forceinline__ unsigned window_hits(const float* pts, int base, int lane, int N,
+__device__ __forceinline__ unsigned window_hits(const float* pts, int base, int lane, int n,
                                                 float cx, float cy, float cz, float r2) {
   unsigned bits = 0;
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     const int i = base + 32 * w + lane;
-    if ((!CHECK || i < N) &&
+    if ((!CHECK || i < n) &&
         sq_dist(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], cx, cy, cz) < r2)
       bits |= 1u << w;
   }
@@ -75,31 +85,42 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ new_x
   extern __shared__ __align__(16) unsigned char smem[];
   float* pts = reinterpret_cast<float*>(smem + plan.off_xyz);
   const int b = blockIdx.y;
-  stage_cloud(xyz + static_cast<size_t>(b) * N * 3, N, pts);
+  const float* cloud = xyz + static_cast<size_t>(b) * N * 3;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m = blockIdx.x * plan.warps + warp;
-  if (m >= M) return;  // the block's last barrier is behind
+  const bool active = m < M;  // the grid's last block may hold idle warps
   const unsigned lower = (1u << lane) - 1u;
-  const float* c = new_xyz + (static_cast<size_t>(b) * M + m) * 3;
+  const float* c = new_xyz + (static_cast<size_t>(b) * M + (active ? m : 0)) * 3;
   const float cx = c[0], cy = c[1], cz = c[2];
   int* o = out + (static_cast<size_t>(b) * M + m) * nsample;
   int cnt = 0, first = -1;  // the same in every lane
-  for (int base = 0; base < N && cnt < nsample; base += 32 * W) {
-    const unsigned bits = base + 32 * W <= N
-                              ? window_hits<false>(pts, base, lane, N, cx, cy, cz, r2)
-                              : window_hits<true>(pts, base, lane, N, cx, cy, cz, r2);
-    if (!__any_sync(kFull, bits != 0u)) continue;  // most windows hold no hit
+  for (int t0 = 0; t0 < N; t0 += plan.tile) {
+    const int t1 = min(t0 + plan.tile, N);
+    // past the first tile: every warp has scanned the previous one; stop
+    // once none needs more
+    if (t0 > 0 && !__syncthreads_or(active && cnt < nsample)) break;
+    stage_tile(cloud, t0, t1 - t0, pts);
+    __syncthreads();
+    if (!active) continue;
+    const int n = t1 - t0;
+    for (int base = t0; base < t1 && cnt < nsample; base += 32 * W) {
+      const unsigned bits = base + 32 * W <= t1
+                                ? window_hits<false>(pts, base - t0, lane, n, cx, cy, cz, r2)
+                                : window_hits<true>(pts, base - t0, lane, n, cx, cy, cz, r2);
+      if (!__any_sync(kFull, bits != 0u)) continue;  // most windows hold no hit
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const unsigned mask = __ballot_sync(kFull, (bits >> w) & 1u);
-      if (mask == 0u) continue;
-      const int rank = cnt + __popc(mask & lower);
-      if (((bits >> w) & 1u) && rank < nsample) o[rank] = base + 32 * w + lane;
-      if (first < 0) first = base + 32 * w + __ffs(mask) - 1;
-      cnt += __popc(mask);
+      for (int w = 0; w < W; ++w) {
+        const unsigned mask = __ballot_sync(kFull, (bits >> w) & 1u);
+        if (mask == 0u) continue;
+        const int rank = cnt + __popc(mask & lower);
+        if (((bits >> w) & 1u) && rank < nsample) o[rank] = base + 32 * w + lane;
+        if (first < 0) first = base + 32 * w + __ffs(mask) - 1;
+        cnt += __popc(mask);
+      }
     }
   }
+  if (!active) return;
   if (first < 0) first = 0;
   for (int s = min(cnt, nsample) + lane; s < nsample; s += 32) o[s] = first;
 }

@@ -25,6 +25,14 @@
 // writes its (value, index) into a slot of the pick's parity, one barrier,
 // and every warp reduces the partials itself; the parity keeps the next
 // pick's writes off the slots that slower warps may still be reading.
+//
+// Past kFpsMaxSlots (8,192) points the registers of one SM cannot hold the
+// cloud: the wide route (plan.wide) gives an object 1,024 threads, thread t
+// owning the points t, t + 1024, ... (coalesced reads). Its running
+// distances live in a global scratch of N floats an object that the wrapper
+// allocates (L2 holds them), and the coordinates are read from device memory
+// at every pick (L1 holds a 16,384-point cloud, L2 any). The argmax is the
+// one above, with 32 warps.
 #include <limits.h>
 
 #include "common.cuh"
@@ -120,6 +128,56 @@ fps_kernel(const float* __restrict__ xyz, int N, int npoint, FpsPlan plan,
   }
 }
 
+// Block (object), kFpsWideWarps warps: thread t owns points t + 1024 k and
+// their running distances in scratch (B x N).
+__global__ void __launch_bounds__(kFpsWideWarps * 32)
+fps_wide_kernel(const float* __restrict__ xyz, int N, int npoint, FpsPlan plan,
+                float* __restrict__ scratch, int* __restrict__ out) {
+  constexpr int kThreads = kFpsWideWarps * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* part_v = reinterpret_cast<int*>(smem + plan.off_val);
+  unsigned* part_i = reinterpret_cast<unsigned*>(smem + plan.off_idx);
+
+  const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const float* p = xyz + static_cast<size_t>(b) * N * 3;
+  float* dist = scratch + static_cast<size_t>(b) * N;
+  for (int i = t; i < N; i += kThreads) dist[i] = 1e10f;  // this thread's own slots
+  int* o = out + static_cast<size_t>(b) * npoint;
+  if (t == 0) o[0] = 0;
+
+  unsigned old = 0;
+  for (int j = 1; j < npoint; ++j) {
+    const float cx = __ldg(p + 3 * old), cy = __ldg(p + 3 * old + 1), cz = __ldg(p + 3 * old + 2);
+    // the thread's argmax over its points in ascending order: a strict >
+    // keeps the lowest index of a tie; a thread without points (-1) never wins
+    float bv = -1.f;
+    unsigned bi = 0xffffffffu;
+    for (int i = t; i < N; i += kThreads) {
+      const float v = fminf(dist[i], sq_dist(__ldg(p + 3 * i), __ldg(p + 3 * i + 1),
+                                             __ldg(p + 3 * i + 2), cx, cy, cz));
+      dist[i] = v;
+      if (v > bv) {
+        bv = v;
+        bi = static_cast<unsigned>(i);
+      }
+    }
+    int v = __float_as_int(bv);
+    warp_argmax(v, bi);
+    int* slot = part_v + (j & 1) * kFpsWideWarps;
+    unsigned* islot = part_i + (j & 1) * kFpsWideWarps;
+    if (lane == 0) {
+      slot[warp] = v;
+      islot[warp] = bi;
+    }
+    __syncthreads();
+    v = slot[lane];  // 32 warps: one partial a lane
+    bi = islot[lane];
+    warp_argmax(v, bi);
+    old = bi;
+    if (t == 0) o[j] = static_cast<int>(bi);
+  }
+}
+
 template <int WARPS, int P>
 cudaError_t launch(const float* xyz, int B, int N, int npoint, const FpsPlan& plan, int* out,
                    cudaStream_t stream) {
@@ -144,11 +202,17 @@ cudaError_t launch_p(const float* xyz, int B, int N, int npoint, const FpsPlan& 
 }
 
 cudaError_t launch_plan(const float* xyz, int B, int N, int npoint, const FpsPlan& plan,
-                        int* out, void* stream) {
-  if (B < 1 || npoint < 1 || npoint > N || plan.warps * 32 * plan.p < N ||
-      plan.smem_bytes > kSmemLimit)
+                        float* scratch, int* out, void* stream) {
+  if (B < 1 || npoint < 1 || npoint > N || plan.smem_bytes > kSmemLimit)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (plan.wide) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    fps_wide_kernel<<<B, kFpsWideWarps * 32, plan.smem_bytes, s>>>(xyz, N, npoint, plan,
+                                                                   scratch, out);
+    return cudaGetLastError();
+  }
+  if (plan.warps * 32 * plan.p < N) return cudaErrorInvalidValue;
   switch (plan.warps) {
     case 1: return launch_p<1>(xyz, B, N, npoint, plan, out, s);
     case 2: return launch_p<2>(xyz, B, N, npoint, plan, out, s);
@@ -162,14 +226,16 @@ cudaError_t launch_plan(const float* xyz, int B, int N, int npoint, const FpsPla
 }  // namespace
 
 // xyz (B, N, 3) f32 -> out (B, npoint) i32, on `stream`, with the plan of
-// plan.cuh:fps_plan. Returns a CUDA error code (invalid value where no plan
-// covers N).
-extern "C" int gp2_fps(const float* xyz, int B, int N, int npoint, int* out, void* stream) {
+// plan.cuh:fps_plan. scratch: B x N floats where N > kFpsMaxSlots (the wide
+// route's running distances), else unused (may be null). Returns a CUDA
+// error code.
+extern "C" int gp2_fps(const float* xyz, int B, int N, int npoint, int* out, void* stream,
+                       float* scratch) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   FpsPlan plan;
   if (fps_plan(N, B, sms, &plan) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_plan(xyz, B, N, npoint, plan, out, stream));
+  return static_cast<int>(launch_plan(xyz, B, N, npoint, plan, scratch, out, stream));
 }

@@ -19,15 +19,104 @@
 // (64 x 272 rows of 384 bf16) add_ln moves 53 MB, ln 26.7 MB (0.008 ms at
 // 3.35 TB/s).
 //
-// Design: one warp per row, 8 rows per 256-thread block. A lane holds the
-// elements lane, lane+32, ... of its row in registers (VPT of them, D <= 32 *
-// VPT), so the row is read from memory once; the two sums are warp shuffles.
+// Design: a warp a row, 8 rows a 256-thread block, the row read from memory
+// once into registers; the two sums are warp shuffles. Two routes:
+// - vector (D a multiple of 4, 16-byte aligned rows and vectors): a lane
+//   holds pieces of 4 consecutive elements (pieces lane, lane + 32, ...:
+//   8-byte loads and stores in bf16, 16-byte in float32; at D = 384 three
+//   pieces a lane), and scale, bias and gamma as float4 reads that L1 serves
+//   after a block's first row.
+// - scalar: a lane holds the elements lane, lane + 32, ... (VPT of them).
+// Every entry takes the vector route where D and the pointers allow it, the
+// scalar route otherwise (any D to 1,024). Timed against each other on the
+// H100 at the paths' shapes (PERF.md section 6), both near the bytes' bound
+// by device time: the vector route 3% faster for gp2_add_ln (bf16), 0-4% a
+// shape for gp2_residual_ln and even for gp2_ln. More rows a warp in flight,
+// or a grid of resident blocks striding over the rows, were slower.
+#include <stdint.h>
+
+#include <initializer_list>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
+
+// 4 consecutive elements of T as float32, and back (the store rounds each).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// The vector route: PPL pieces of 4 a lane (D <= 128 PPL).
+template <typename T, int PPL>
+__global__ void __launch_bounds__(kThreads)
+ln_vec_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __restrict__ gamma,
+              const float* __restrict__ scale, const float* __restrict__ bias,
+              T* __restrict__ x2_out, T* __restrict__ ln_out, int rows, int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const size_t base = static_cast<size_t>(row) * D;
+  float4 v[PPL];
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < PPL; ++k) {
+    const int c = 4 * (lane + 32 * k);
+    v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < D) {
+      v[k] = load4(x + base + c);
+      if (h != nullptr) {
+        float4 hv = load4(h + base + c);
+        if (gamma != nullptr) {
+          const float4 g = __ldg(reinterpret_cast<const float4*>(gamma + c));
+          hv = make_float4(__fmul_rn(hv.x, g.x), __fmul_rn(hv.y, g.y), __fmul_rn(hv.z, g.z),
+                           __fmul_rn(hv.w, g.w));
+        }
+        v[k] = make_float4(__fadd_rn(v[k].x, hv.x), __fadd_rn(v[k].y, hv.y),
+                           __fadd_rn(v[k].z, hv.z), __fadd_rn(v[k].w, hv.w));
+      }
+      sum += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+    }
+  }
+  const float mu = warp_sum(sum) / static_cast<float>(D);
+  float sq = 0.f;
+#pragma unroll
+  for (int k = 0; k < PPL; ++k) {
+    if (4 * (lane + 32 * k) < D) {
+      const float a = v[k].x - mu, b = v[k].y - mu, c = v[k].z - mu, d = v[k].w - mu;
+      sq += (a * a + b * b) + (c * c + d * d);
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
+#pragma unroll
+  for (int k = 0; k < PPL; ++k) {
+    const int c = 4 * (lane + 32 * k);
+    if (c >= D) continue;
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + c));
+    const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + c));
+    const float4 e = v[k];
+    store4(ln_out + base + c,
+           make_float4((e.x - mu) * rstd * sc.x + bi.x, (e.y - mu) * rstd * sc.y + bi.y,
+                       (e.z - mu) * rstd * sc.z + bi.z, (e.w - mu) * rstd * sc.w + bi.w));
+    if (x2_out != nullptr) store4(x2_out + base + c, e);
+  }
+}
 
 template <typename T, int VPT>
 __global__ void __launch_bounds__(kThreads)
@@ -86,10 +175,38 @@ cudaError_t launch_vpt(const void* x, const void* h, const float* gamma, const f
   return cudaGetLastError();
 }
 
+template <typename T, int PPL>
+cudaError_t launch_vec(const void* x, const void* h, const float* gamma, const float* scale,
+                       const float* bias, void* x2, void* ln, int rows, int D, float eps,
+                       cudaStream_t stream) {
+  const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  ln_vec_kernel<T, PPL><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(h), gamma, scale, bias,
+      static_cast<T*>(x2), static_cast<T*>(ln), rows, D, eps);
+  return cudaGetLastError();
+}
+
+// The vector route takes D a multiple of 4 with every pointer 16-byte aligned.
+bool vector_route(int D, std::initializer_list<const void*> ptrs) {
+  if (D % 4 != 0) return false;
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  }
+  return true;
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* h, const float* gamma, const float* scale,
                    const float* bias, void* x2, void* ln, int rows, int D, float eps,
                    cudaStream_t stream) {
+  if (vector_route(D, {x, h, gamma, scale, bias, x2, ln})) {
+    if (D <= 128) return launch_vec<T, 1>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
+    if (D <= 256) return launch_vec<T, 2>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
+    if (D <= 384) return launch_vec<T, 3>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
+    if (D <= 512) return launch_vec<T, 4>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
+    if (D <= 1024) return launch_vec<T, 8>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
+    return cudaErrorInvalidValue;
+  }
   if (D <= 128) return launch_vpt<T, 4>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
   if (D <= 256) return launch_vpt<T, 8>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
   if (D <= 384) return launch_vpt<T, 12>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);

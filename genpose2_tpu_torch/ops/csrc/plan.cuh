@@ -1,5 +1,6 @@
 // Launch plans of the tensor-core kernels (ode_rk4.cu, fused_sa.cu,
-// relpe_attention.cu) and of FPS and ball query (fps.cu, ball_query.cu):
+// relpe_attention.cu, vit_attention.cu's route) and of FPS, ball query and
+// ball count (fps.cu, ball_query.cu, ball_count.cu):
 // row or query tile, ring depth, heads, warps or centroids of a block and
 // the shared-memory layout, from the shapes alone.
 //
@@ -287,37 +288,51 @@ constexpr int kFpsMaxWarps = 16;
 constexpr int kFpsMaxP = 32;        // points a thread holds in registers
 constexpr int kFpsMaxSlots = 8192;  // warps x 32 x p: 16 warps at 16 points or 8 at 32 stay
                                     // within the SM's 65,536 registers
+constexpr int kFpsWideWarps = 32;   // the wide route: 1,024 threads an object
 
 struct FpsPlan {
   int warps;  // warps of a block, one block per object
-  int p;      // points a thread holds in registers: warps x 32 x p >= N
+  int p;      // points a thread holds in registers: warps x 32 x p >= N; 0 on
+              // the wide route
+  int wide;   // 1: the wide route (N > kFpsMaxSlots): a thread owns the points
+              // t, t + 1024, ...; their running distances in a global scratch
+              // of N floats an object, the coordinates read from device
+              // memory (L1 / L2) at every pick
   int smem_bytes;
-  // byte offsets: f32 xs, ys, zs (N rounded up to 4 each); the warps'
-  // partial values and indices (2 x warps ints each, double-buffered by the
-  // pick's parity)
+  // byte offsets: f32 xs, ys, zs (N rounded up to 4 each; empty on the wide
+  // route); the warps' partial values and indices (2 x warps ints each,
+  // double-buffered by the pick's parity)
   int off_x, off_y, off_z, off_val, off_idx;
 };
 
-GP2_HD void fps_layout(int N, int warps, int p, FpsPlan* q) {
+GP2_HD void fps_layout(int N, int warps, int p, int wide, FpsPlan* q) {
+  const int staged = wide ? 0 : N;
   q->warps = warps;
-  q->p = p;
+  q->p = wide ? 0 : p;
+  q->wide = wide;
   q->off_x = 0;
-  q->off_y = q->off_x + 4 * round_up(N, 4);
-  q->off_z = q->off_y + 4 * round_up(N, 4);
-  q->off_val = q->off_z + 4 * round_up(N, 4);
+  q->off_y = q->off_x + 4 * round_up(staged, 4);
+  q->off_z = q->off_y + 4 * round_up(staged, 4);
+  q->off_val = q->off_z + 4 * round_up(staged, 4);
   q->off_idx = q->off_val + 4 * round_up(2 * warps, 4);
   q->smem_bytes = q->off_idx + 4 * round_up(2 * warps, 4);
 }
 
-// (N, B objects): 0 and *q filled, or -1 when N is out of range. The
+// (N, B objects): 0 and *q filled, or -1 when N or B is out of range. The
 // fastest of the (warps, P) variants timed on the H100 (PERF.md section 6):
 // to 256 points one warp (no block barrier a pick) with N / 32 points
 // a thread; above, 4 warps with N / 128 points a thread, the warps doubled
 // instead while a thread would hold more than 8 (more than 16 where B
 // exceeds the SMs, so that two blocks share an SM). fps.cu instantiates
-// warps 1-16 and P 4-32, powers of two, at most kFpsMaxSlots a block.
+// warps 1-16 and P 4-32, powers of two, at most kFpsMaxSlots a block. Past
+// kFpsMaxSlots points the wide route: 32 warps, the running distances in
+// the caller's global scratch.
 inline int fps_plan(int N, int B, int num_sms, FpsPlan* q) {
-  if (N < 1 || N > kFpsMaxSlots || B < 1 || num_sms < 1) return -1;
+  if (N < 1 || B < 1 || num_sms < 1) return -1;
+  if (N > kFpsMaxSlots) {
+    fps_layout(N, kFpsWideWarps, 0, 1, q);
+    return 0;
+  }
   int warps = 1, p = 4;
   if (N <= 32 * 8) {
     while (32 * p < N) p *= 2;
@@ -330,38 +345,147 @@ inline int fps_plan(int N, int B, int num_sms, FpsPlan* q) {
       warps *= 2;
     }
   }
-  fps_layout(N, warps, p, q);
+  fps_layout(N, warps, p, 0, q);
   return q->smem_bytes <= kSmemLimit ? 0 : -1;
 }
 
 // ----------------------------------------------------------- ball query
 
-constexpr int kBallQueryWindow = 4;  // sub-slots of 32 points a warp tests a step
+constexpr int kBallQueryWindow = 4;    // sub-slots of 32 points a warp tests a step
+constexpr int kBallQueryTile = 4096;   // points of the cloud staged at once (48 KB)
 
 struct BallQueryPlan {
   int warps;   // warps of a block, one centroid each
   int blocks;  // B x ceil(M / warps)
+  int tile;    // points staged a tile: min(N, kBallQueryTile), a multiple of
+               // 32 x kBallQueryWindow where N is larger, so that no window
+               // straddles two tiles
   int smem_bytes;
-  int off_xyz;  // byte offset of the object's cloud as it lies in memory (3 N f32)
+  int off_xyz;  // byte offset of the tile of the cloud as it lies in memory (3 tile f32)
 };
 
 GP2_HD void ball_query_layout(int B, int N, int M, int warps, BallQueryPlan* q) {
   q->warps = warps;
   q->blocks = B * ((M + warps - 1) / warps);
+  q->tile = imin(N, kBallQueryTile);
   q->off_xyz = 0;
-  q->smem_bytes = q->off_xyz + 4 * round_up(3 * N, 4);
+  q->smem_bytes = q->off_xyz + 4 * round_up(3 * q->tile, 4);
 }
 
 // (B, N, M, nsample): 0 and *q filled, or -1. 8 warps a block, fewer where 8
 // would leave SMs without a block: of the block sizes timed on the H100
 // (PERF.md section 6), small blocks balance the card best, and
-// staging a cloud costs less than a scan.
+// staging a cloud costs less than a scan. A cloud past kBallQueryTile points
+// streams through shared memory in tiles.
 inline int ball_query_plan(int B, int N, int M, int nsample, int num_sms, BallQueryPlan* q) {
   if (B < 1 || N < 1 || M < 1 || nsample < 1 || num_sms < 1) return -1;
   int warps = 8;
   while (warps > 1 && static_cast<long long>(B) * ((M + warps - 1) / warps) < num_sms) warps /= 2;
   ball_query_layout(B, N, M, warps, q);
   return q->smem_bytes <= kSmemLimit ? 0 : -1;
+}
+
+// ----------------------------------------------------------- ball count
+
+constexpr int kBallCountThreads = 256;  // threads of a block
+constexpr int kBallCountTile = 2048;    // points of the cloud staged at once (32 KB)
+
+struct BallCountPlan {
+  int lanes;      // centroid lanes of a warp (32, 16 or 8); a warp's 32 / lanes
+                  // groups of lanes scan interleaved points
+  int cpt;        // centroids a thread holds in registers (4, 2 or 1)
+  int splits;     // threads that share a centroid, each scanning every
+                  // splits-th point: kBallCountThreads / lanes
+  int centroids;  // centroids of a block: lanes x cpt
+  int blocks;     // B x ceil(M / centroids)
+  int tile;       // points staged a tile: min(N rounded up to 4, kBallCountTile)
+  int smem_bytes;
+  // byte offsets: the tile as float4 (x, y, z, 0), the block's counts (ints)
+  int off_pts, off_cnt;
+};
+
+GP2_HD void ball_count_layout(int B, int N, int M, int lanes, int cpt, BallCountPlan* q) {
+  q->lanes = lanes;
+  q->cpt = cpt;
+  q->splits = kBallCountThreads / lanes;
+  q->centroids = lanes * cpt;
+  q->blocks = B * ((M + q->centroids - 1) / q->centroids);
+  q->tile = imin(round_up(N, 4), kBallCountTile);
+  q->off_pts = 0;
+  q->off_cnt = q->off_pts + 16 * q->tile;
+  q->smem_bytes = q->off_cnt + 4 * round_up(q->centroids, 4);
+}
+
+// (B, N, M): 0 and *q filled, or -1. Of the (lanes, centroids a thread)
+// options, the one that puts the fewest centroids on the busiest SM (blocks
+// in rounds of num_sms, times centroids a block); ties keep the larger
+// block, whose staged points serve more tests a read. At B = 64, M = 512:
+// 32 x 4, 256 blocks; at B = 12: 8 x 2, 384 blocks.
+inline int ball_count_plan(int B, int N, int M, int num_sms, BallCountPlan* q) {
+  if (B < 1 || N < 0 || M < 1 || num_sms < 1) return -1;  // N = 0: every count 0
+  const int opts[5][2] = {{32, 4}, {32, 2}, {16, 2}, {8, 2}, {8, 1}};
+  long long best_load = -1;
+  for (int o = 0; o < 5; ++o) {
+    BallCountPlan c;
+    ball_count_layout(B, N, M, opts[o][0], opts[o][1], &c);
+    const long long load = (c.blocks + num_sms - 1) / num_sms * static_cast<long long>(c.centroids);
+    if (best_load < 0 || load < best_load) {
+      *q = c;
+      best_load = load;
+    }
+  }
+  return q->smem_bytes <= kSmemLimit ? 0 : -1;
+}
+
+// -------------------------------------------------------- ViT attention
+
+// The MMA depth: bf16 D rounded up to 64 or 128, float32 D to 16, 32, 64 or
+// 128 (0: not supported).
+GP2_HD int vit_padded_depth(int D, int bf16) {
+  if (D <= 0 || D > 128) return 0;
+  if (bf16) return D <= 64 ? 64 : 128;
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+}
+
+// Keys of one staged window on the long-sequence route: about 64 KB of K
+// and V (68 KB at most with float32's padded rows), three blocks an SM.
+GP2_HD constexpr int vit_window_keys(int Dp, int bf16) {
+  return bf16 ? (Dp == 64 ? 256 : 128) : (Dp <= 64 ? 128 : 64);
+}
+
+// Shared memory of a block staging `rows` keys (a multiple of 16): bf16 K and
+// V plus 1 KB to align the swizzle atoms; float32 K and V rows of Dp + 4.
+GP2_HD long long vit_smem_bytes(int rows, int Dp, int bf16) {
+  if (!bf16) return static_cast<long long>(rows) * 2 * (Dp + 4) * 4;
+  return static_cast<long long>(2 * (Dp / 64)) * rows * 128 + 1024;
+}
+
+struct VitAttentionPlan {
+  int dp;        // head dim padded to the MMA depth
+  int windowed;  // 1: K and V stream through shared memory in key windows
+  int keys;      // keys staged at once: N rounded up to 16 (the whole head), or a window
+  int smem_bytes;
+};
+
+// (N tokens, head dim D): 0 and *q filled, or -1 (D not supported). A block
+// holds one head's K and V whole while they fit smem_limit, else the window.
+inline int vit_attention_plan(int N, int D, int bf16, int smem_limit, VitAttentionPlan* q) {
+  q->dp = vit_padded_depth(D, bf16);
+  if (N < 1 || q->dp == 0) return -1;
+  q->keys = round_up(N, 16);
+  q->windowed = vit_smem_bytes(q->keys, q->dp, bf16) > smem_limit;
+  if (q->windowed) q->keys = vit_window_keys(q->dp, bf16);
+  q->smem_bytes = static_cast<int>(vit_smem_bytes(q->keys, q->dp, bf16));
+  return q->smem_bytes <= smem_limit ? 0 : -1;
+}
+
+// The route switch: the most tokens whose K and V a block holds whole.
+inline int vit_attention_max_tokens(int D, int bf16, int smem_limit) {
+  const int Dp = vit_padded_depth(D, bf16);
+  if (Dp == 0) return 0;
+  int n = 0;
+  while (vit_smem_bytes(n + 16, Dp, bf16) <= smem_limit) n += 16;
+  return n;
 }
 
 #ifdef GP2_PLAN_EXPORTS
@@ -383,5 +507,11 @@ extern "C" int gp2_fps_plan(int N, int B, int num_sms, int* out) {
 }
 extern "C" int gp2_ball_query_plan(int B, int N, int M, int nsample, int num_sms, int* out) {
   return ball_query_plan(B, N, M, nsample, num_sms, reinterpret_cast<BallQueryPlan*>(out));
+}
+extern "C" int gp2_ball_count_plan(int B, int N, int M, int num_sms, int* out) {
+  return ball_count_plan(B, N, M, num_sms, reinterpret_cast<BallCountPlan*>(out));
+}
+extern "C" int gp2_vit_attention_plan(int N, int D, int bf16, int smem_limit, int* out) {
+  return vit_attention_plan(N, D, bf16, smem_limit, reinterpret_cast<VitAttentionPlan*>(out));
 }
 #endif

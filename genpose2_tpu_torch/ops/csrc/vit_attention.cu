@@ -68,8 +68,10 @@
 //   PV product the key order inside an 8-key step is permuted (keys 2t, 2t+1
 //   are the operand's k = t, t+4) so that p again comes from the score
 //   fragment without a shuffle.
-// - Shared memory bounds N: at head dim 64, 896 tokens in bf16 and 416 in
-//   float32 (the wrapper raises beyond gp2_vit_attention_max_tokens).
+// - Long token axes: a block holds a head's K and V whole up to
+//   gp2_vit_attention_max_tokens (at head dim 64: 896 tokens in bf16, 416 in
+//   float32); past it the window kernels below stream K and V through shared
+//   memory in key windows, one query tile a block.
 #include <stdint.h>
 
 #include <algorithm>
@@ -94,22 +96,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kChunk = 64;    // keys per bf16 score chunk (one wgmma n64)
 constexpr int kF32Warps = 9;  // warps of a float32 block (one 16-row tile each)
 constexpr int kF32Tiles = 4;  // n-tiles of 8 keys in a float32 score chunk
-
-// The MMA depth: bf16 D rounded up to 64 or 128, float32 D to 16, 32, 64 or
-// 128 (0: not supported).
-__host__ __device__ __forceinline__ int padded_depth(int D, bool bf16) {
-  if (D <= 0 || D > 128) return 0;
-  if (bf16) return D <= 64 ? 64 : 128;
-  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
-}
-
-// Shared memory of a block: bf16 K and V (rows to a multiple of 16) plus 1 KB
-// to align the swizzle atoms; float32 K and V rows of Dp + 4.
-__host__ __forceinline__ size_t smem_bytes(int N, int Dp, bool bf16) {
-  const int rows = round_up(N, 16);
-  if (!bf16) return static_cast<size_t>(rows) * 2 * (Dp + 4) * 4;
-  return static_cast<size_t>(2 * (Dp / 64) * rows) * 128 + 1024;
-}
 
 // --------------------------------------------------------------- PTX helpers
 
@@ -308,13 +294,15 @@ __device__ __forceinline__ float rotate(float x, float partner, bool first_half,
   return __fadd_rn(__fmul_rn(x, c), __fmul_rn(first_half ? -partner : partner, s));
 }
 
-// RoPE on rows j0..j1-1 of the staged K, once: pair (d, d + D/2) of each row
-// by one lane, rounded back to T; a warp walks the rows. Each lane reads four rows'
-// pairs and their table entries (from L2) before it writes any: the loop is
-// bound by the latency of those reads.
+// RoPE on keys j0..j1-1 of the staged K (key j in staged row j - kbase),
+// once: pair (d, d + D/2) of each row by one lane, rounded back to T; a warp
+// walks the rows. Each lane reads four rows' pairs and their table entries
+// (from L2) before it writes any: the loop is bound by the latency of those
+// reads.
 template <typename T, typename Idx>
 __device__ __forceinline__ void rope_keys(T* sK, Idx idx, const float* __restrict__ sn,
-                                          const float* __restrict__ cs, int j0, int j1, int D) {
+                                          const float* __restrict__ cs, int j0, int j1, int kbase,
+                                          int D) {
   constexpr int kUnroll = 4;
   const int h2 = D / 2, warps = blockDim.x >> 5;
   for (int d = threadIdx.x & 31; d < h2; d += 32) {
@@ -324,8 +312,8 @@ __device__ __forceinline__ void rope_keys(T* sK, Idx idx, const float* __restric
       for (int i = 0; i < kUnroll; ++i) {
         const int j = min(r + i * warps, j1 - 1);
         const size_t t0 = static_cast<size_t>(j) * D + d;
-        x1[i] = to_f32(sK[idx(j, d)]);
-        x2[i] = to_f32(sK[idx(j, d + h2)]);
+        x1[i] = to_f32(sK[idx(j - kbase, d)]);
+        x2[i] = to_f32(sK[idx(j - kbase, d + h2)]);
         c1[i] = __ldg(cs + t0);
         s1[i] = __ldg(sn + t0);
         c2[i] = __ldg(cs + t0 + h2);
@@ -335,8 +323,8 @@ __device__ __forceinline__ void rope_keys(T* sK, Idx idx, const float* __restric
       for (int i = 0; i < kUnroll; ++i) {
         const int j = r + i * warps;
         if (j >= j1) break;
-        sK[idx(j, d)] = from_f32<T>(rotate(x1[i], x2[i], true, c1[i], s1[i]));
-        sK[idx(j, d + h2)] = from_f32<T>(rotate(x2[i], x1[i], false, c2[i], s2[i]));
+        sK[idx(j - kbase, d)] = from_f32<T>(rotate(x1[i], x2[i], true, c1[i], s1[i]));
+        sK[idx(j - kbase, d + h2)] = from_f32<T>(rotate(x2[i], x1[i], false, c2[i], s2[i]));
       }
     }
   }
@@ -470,13 +458,14 @@ __device__ __forceinline__ float (&flat(float (&x)[kNT][4]))[4 * kNT] {
   return *reinterpret_cast<float(*)[4 * kNT]>(&x[0][0]);
 }
 
-// One chunk of 8 kNT keys from key0 (64, or the 16, 32 or 48 left at the
-// end) for a 64-row tile: the scores, the softmax update of m and l, o
-// rescaled, and o += p V issued (it retires during the next chunk's scores).
+// One chunk of 8 kNT keys from staged row key0 (64, or the 16, 32 or 48
+// left at the end; key kbase + key0 on) for a 64-row tile: the scores, the
+// softmax update of m and l, o rescaled, and o += p V issued (it retires
+// during the next chunk's scores). rows: the staged rows of a column block.
 template <int kDp, int kNT>
 __device__ __forceinline__ void attend_chunk(const uint32_t (&qa)[kDp / 16][4], const Bf16* sK,
-                                             const Bf16* sV, int rows, int key0, int N,
-                                             int n_valid, float scale, float c2, int lane,
+                                             const Bf16* sV, int rows, int key0, int kbase,
+                                             int N, int n_valid, float scale, float c2, int lane,
                                              float (&m)[2], float (&l)[2],
                                              float (&o)[kDp / 64][8][4]) {
   constexpr int kCB = kDp / 64;
@@ -498,7 +487,7 @@ __device__ __forceinline__ void attend_chunk(const uint32_t (&qa)[kDp / 16][4], 
   // no branch here may differ between the warps of the warpgroup: ptxas then
   // serialises every wgmma of the loop
   float alpha[2];
-  mask(u, key0, min(N, n_valid), N, n_valid, scale, lane);
+  mask(u, kbase + key0, min(N, n_valid), N, n_valid, scale, lane);
   softmax_chunk(u, m, l, c2, alpha);
 #pragma unroll
   for (int cb = 0; cb < kCB; ++cb) scale_rows(o[cb], alpha);
@@ -521,46 +510,60 @@ __device__ __forceinline__ void attend_chunk(const uint32_t (&qa)[kDp / 16][4], 
   wgmma_commit();
 }
 
-// One 64-row tile against every key: o = softmax(s) V (this warp's 16 rows;
-// kDp / 64 column blocks of 64). first: the block's first tile, which calls
-// arrive(c) before it reads chunk c.
-template <int kDp, typename Arrive>
-__device__ __forceinline__ void attend_bf16(const uint32_t (&qa)[kDp / 16][4], const Bf16* sK,
-                                            const Bf16* sV, int rows, int N, int n_valid,
-                                            float scale, bool first, Arrive arrive,
-                                            int lane, float (&o)[kDp / 64][8][4]) {
-  constexpr int kCB = kDp / 64;
-  const float c2 = scale * kLog2e;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+// The running max, sum and output of a 64-row tile before its first key.
+template <int kDp>
+__device__ __forceinline__ void start_rows(float (&m)[2], float (&l)[2],
+                                           float (&o)[kDp / 64][8][4]) {
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
 #pragma unroll
-  for (int cb = 0; cb < kCB; ++cb) {
+  for (int cb = 0; cb < kDp / 64; ++cb) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) o[cb][i][0] = o[cb][i][1] = o[cb][i][2] = o[cb][i][3] = 0.f;
   }
+}
+
+// A 64-row tile against the n_rows staged keys (a multiple of 16; staged
+// row j is key kbase + j; rows: the staged rows of a column block): the
+// online softmax over chunks of 64 and a narrower last one. first: the
+// block's first tile over a resident head, which calls arrive(c) before it
+// reads chunk c. The last PV product may still be in flight.
+template <int kDp, typename Arrive>
+__device__ __forceinline__ void attend_keys(const uint32_t (&qa)[kDp / 16][4], const Bf16* sK,
+                                            const Bf16* sV, int rows, int n_rows, int kbase,
+                                            int N, int n_valid, float scale, bool first,
+                                            Arrive arrive, int lane, float (&m)[2],
+                                            float (&l)[2], float (&o)[kDp / 64][8][4]) {
+  const float c2 = scale * kLog2e;
   int key0 = 0;
-  for (; key0 + kChunk <= rows; key0 += kChunk) {
+  for (; key0 + kChunk <= n_rows; key0 += kChunk) {
     if (first) arrive(key0 / kChunk);
-    attend_chunk<kDp, 8>(qa, sK, sV, rows, key0, N, n_valid, scale, c2, lane, m, l, o);
+    attend_chunk<kDp, 8>(qa, sK, sV, rows, key0, kbase, N, n_valid, scale, c2, lane, m, l, o);
   }
-  if (key0 < rows) {  // 16, 32 or 48 keys left: a narrower chunk
+  if (key0 < n_rows) {  // 16, 32 or 48 keys left: a narrower chunk
     if (first) arrive(key0 / kChunk);
-    switch (rows - key0) {
+    switch (n_rows - key0) {
       case 16:
-        attend_chunk<kDp, 2>(qa, sK, sV, rows, key0, N, n_valid, scale, c2, lane, m, l, o);
+        attend_chunk<kDp, 2>(qa, sK, sV, rows, key0, kbase, N, n_valid, scale, c2, lane, m, l, o);
         break;
       case 32:
-        attend_chunk<kDp, 4>(qa, sK, sV, rows, key0, N, n_valid, scale, c2, lane, m, l, o);
+        attend_chunk<kDp, 4>(qa, sK, sV, rows, key0, kbase, N, n_valid, scale, c2, lane, m, l, o);
         break;
       default:
-        attend_chunk<kDp, 6>(qa, sK, sV, rows, key0, N, n_valid, scale, c2, lane, m, l, o);
+        attend_chunk<kDp, 6>(qa, sK, sV, rows, key0, kbase, N, n_valid, scale, c2, lane, m, l, o);
     }
   }
+}
+
+// Waits for the last PV product and divides o by the row sums.
+template <int kDp>
+__device__ __forceinline__ void finish_rows(const float (&l)[2], float (&o)[kDp / 64][8][4]) {
   wgmma_wait_all();
 #pragma unroll
-  for (int cb = 0; cb < kCB; ++cb) fence_regs(flat(o[cb]));
+  for (int cb = 0; cb < kDp / 64; ++cb) fence_regs(flat(o[cb]));
   const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
 #pragma unroll
-  for (int cb = 0; cb < kCB; ++cb) scale_rows(o[cb], inv);
+  for (int cb = 0; cb < kDp / 64; ++cb) scale_rows(o[cb], inv);
 }
 
 // Block (chunk, head, object), one warpgroup: tiles_per_block 64-row query
@@ -596,7 +599,7 @@ vit_attention_bf16_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
     cp_async_wait(chunks - 1 - c);
     if constexpr (kRope) {
       __syncthreads();
-      rope_keys(sK, SwizzledRows{rows}, sn, cs, c * kChunk, min(c * kChunk + kChunk, N), D);
+      rope_keys(sK, SwizzledRows{rows}, sn, cs, c * kChunk, min(c * kChunk + kChunk, N), 0, D);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
@@ -612,8 +615,11 @@ vit_attention_bf16_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
     const int row0 = tile * 64 + wrow;
     uint32_t qn[kDp / 16][4];
     if (tile + 1 < end) load_q_bf16<kDp, kRope>(qn, q + head, sn, cs, row0 + 64, N, C, D, lane);
-    float o[kDp / 64][8][4];
-    attend_bf16<kDp>(qa, sK, sV, rows, N, n_valid, scale, tile == first, arrive, lane, o);
+    float m[2], l[2], o[kDp / 64][8][4];
+    start_rows<kDp>(m, l, o);
+    attend_keys<kDp>(qa, sK, sV, rows, rows, 0, N, n_valid, scale, tile == first, arrive, lane,
+                     m, l, o);
+    finish_rows<kDp>(l, o);
 #pragma unroll
     for (int cb = 0; cb < kDp / 64; ++cb) {
       store_rows(o[cb], out + head + static_cast<size_t>(row0) * C + cb * 64, C, N - row0,
@@ -676,11 +682,21 @@ __device__ __forceinline__ void scores_f32(const QFragF32<kDp>& f, const float* 
 }
 
 // o += p . V[key0 ..] for the 8-key steps below Np; operand k = t <-> key 2t,
-// k = t + 4 <-> key 2t + 1.
-template <int kDp, bool kFull>
+// k = t + 4 <-> key 2t + 1. kFresh: the chunk's products are summed from zero
+// and then added to o in float32. The tensor cores' accumulation does not
+// round to nearest: accumulated in o over a long token axis (1,605 keys) it
+// drifted 3e-5 of o, past the 1e-5 bound, while the resident route's axes
+// (at most 416 keys) stay within it without the extra sums.
+template <int kDp, bool kFull, bool kFresh = false>
 __device__ __forceinline__ void pv_f32(const float (&p)[kF32Tiles][4], const float* sV,
                                        int key0, int Np, int lane, float (&o)[kDp / 8][4]) {
   const int g = lane >> 2, t = lane & 3;
+  float fresh[kDp / 8][4];
+  float (&acc)[kDp / 8][4] = kFresh ? fresh : o;
+  if constexpr (kFresh) {
+#pragma unroll
+    for (int dt = 0; dt < kDp / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  }
 #pragma unroll
   for (int nt = 0; nt < kF32Tiles; ++nt) {
     if (!kFull && key0 + nt * 8 >= Np) continue;
@@ -695,9 +711,16 @@ __device__ __forceinline__ void pv_f32(const float (&p)[kF32Tiles][4], const flo
       uint32_t h0, l0, h1, l1;
       split_tf32_rn(v0[dt * 8], h0, l0);
       split_tf32_rn(v0[kDp + 4 + dt * 8], h1, l1);
-      mma_tf32(o[dt], al, h0, h1);
-      mma_tf32(o[dt], ah, l0, l1);
-      mma_tf32(o[dt], ah, h0, h1);
+      mma_tf32(acc[dt], al, h0, h1);
+      mma_tf32(acc[dt], ah, l0, l1);
+      mma_tf32(acc[dt], ah, h0, h1);
+    }
+  }
+  if constexpr (kFresh) {
+#pragma unroll
+    for (int dt = 0; dt < kDp / 8; ++dt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] += acc[dt][e];
     }
   }
 }
@@ -730,7 +753,7 @@ vit_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   cp_async_wait(0);
   __syncthreads();
   if constexpr (kRope) {
-    rope_keys(sK, PaddedRows<kDp>(), sn, cs, 0, N, D);
+    rope_keys(sK, PaddedRows<kDp>(), sn, cs, 0, N, 0, D);
     __syncthreads();
   }
 
@@ -768,6 +791,143 @@ vit_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
+// ------------------------------------------- long token axes: key windows
+// Past gp2_vit_attention_max_tokens one head's K and V do not fit a block's
+// shared memory (plan.cuh:vit_attention_plan). Then a block takes one query
+// tile (bf16: 64 rows, one warpgroup) or kF32Warps tiles of 16 rows
+// (float32, a warp each) and streams the head's K and V through shared
+// memory in windows of plan.cuh:vit_window_keys keys, in key order: stage a
+// window (cp.async), rotate its keys with RoPE, run every chunk of it
+// through the online softmax, wait for the last PV product, barrier, and
+// the next window overwrites it. The running max, sum and output carry from
+// one window to the next, so the result is the resident route's; only each
+// head's K and V are read once for each tile (from L2) instead of once for
+// each block. A simple route, not tuned: one window in flight.
+
+template <int kDp, bool kRope>
+__global__ void __launch_bounds__(128)
+vit_attention_bf16_window_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k,
+                                 const Bf16* __restrict__ v, const float* __restrict__ sn,
+                                 const float* __restrict__ cs, float* __restrict__ out, int N,
+                                 int C, int D, int n_valid, float scale, int vec) {
+  constexpr int kWin = vit_window_keys(kDp, 1);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  Bf16* sK = reinterpret_cast<Bf16*>(smem_raw + ((1024 - (base & 1023)) & 1023));
+  Bf16* sV = sK + (kDp / 64) * kWin * 64;
+  const SwizzledRows idx{kWin};
+  const size_t head = static_cast<size_t>(blockIdx.z) * N * C + static_cast<size_t>(blockIdx.y) * D;
+  zero_pad<Bf16, kDp>(sK, idx, kWin, kWin, D);  // the depth's pad, once
+  zero_pad<Bf16, kDp>(sV, idx, kWin, kWin, D);
+
+  const int lane = threadIdx.x & 31, row0 = blockIdx.x * 64 + 16 * (threadIdx.x >> 5);
+  uint32_t qa[kDp / 16][4];
+  load_q_bf16<kDp, kRope>(qa, q + head, sn, cs, row0, N, C, D, lane);
+  float m[2], l[2], o[kDp / 64][8][4];
+  start_rows<kDp>(m, l, o);
+  for (int w0 = 0; w0 < N; w0 += kWin) {
+    const int n = min(kWin, N - w0), n_rows = round_up(n, 16);
+    if (w0 > 0) {  // every product of the last window has read it
+      wgmma_wait_all();
+#pragma unroll
+      for (int cb = 0; cb < kDp / 64; ++cb) fence_regs(flat(o[cb]));
+      __syncthreads();
+    }
+    if (n < kWin) {  // zeros in the last window's pad rows
+      zero_pad<Bf16, kDp>(sK, idx, n, n_rows, D);
+      zero_pad<Bf16, kDp>(sV, idx, n, n_rows, D);
+    }
+    const size_t src = head + static_cast<size_t>(w0) * C;
+    copy_rows<Bf16, kDp>(k + src, sK, idx, 0, n, C, D, vec);
+    copy_rows<Bf16, kDp>(v + src, sV, idx, 0, n, C, D, vec);
+    cp_async_commit();
+    cp_async_wait(0);
+    if constexpr (kRope) {
+      __syncthreads();
+      rope_keys(sK, idx, sn, cs, w0, w0 + n, w0, D);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    attend_keys<kDp>(qa, sK, sV, kWin, n_rows, w0, N, n_valid, scale, false, [](int) {}, lane,
+                     m, l, o);
+  }
+  finish_rows<kDp>(l, o);
+#pragma unroll
+  for (int cb = 0; cb < kDp / 64; ++cb) {
+    store_rows(o[cb], out + head + static_cast<size_t>(row0) * C + cb * 64, C, N - row0,
+               D - cb * 64, lane);
+  }
+}
+
+template <int kDp, bool kRope>
+__global__ void __launch_bounds__(kF32Warps * 32)
+vit_attention_f32_window_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ sn,
+                                const float* __restrict__ cs, float* __restrict__ out, int N,
+                                int C, int D, int n_valid, float scale, int vec) {
+  constexpr int kWin = vit_window_keys(kDp, 0), kKeys = 8 * kF32Tiles;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + kWin * (kDp + 4);
+  const PaddedRows<kDp> idx;
+  const size_t head = static_cast<size_t>(blockIdx.z) * N * C + static_cast<size_t>(blockIdx.y) * D;
+  zero_pad<float, kDp>(sK, idx, kWin, kWin, D);
+  zero_pad<float, kDp>(sV, idx, kWin, kWin, D);
+
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * (blockIdx.x * kF32Warps + (threadIdx.x >> 5));
+  const bool has_rows = row0 < N;  // the grid's last block may hold idle warps
+  QFragF32<kDp> f;
+  if (has_rows) load_q_f32<kDp, kRope>(f, q + head, sn, cs, row0, N, C, D, lane);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[kDp / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kDp / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  const int lim = min(N, n_valid);
+  const float c = scale * kLog2e;
+  for (int w0 = 0; w0 < N; w0 += kWin) {
+    const int n = min(kWin, N - w0), Np = round_up(n, 16);
+    if (w0 > 0) __syncthreads();  // every warp is done with the last window
+    if (n < kWin) {
+      zero_pad<float, kDp>(sK, idx, n, Np, D);
+      zero_pad<float, kDp>(sV, idx, n, Np, D);
+    }
+    const size_t src = head + static_cast<size_t>(w0) * C;
+    copy_rows<float, kDp>(k + src, sK, idx, 0, n, C, D, vec);
+    copy_rows<float, kDp>(v + src, sV, idx, 0, n, C, D, vec);
+    cp_async_commit();
+    cp_async_wait(0);
+    __syncthreads();
+    if constexpr (kRope) {
+      rope_keys(sK, idx, sn, cs, w0, w0 + n, w0, D);
+      __syncthreads();
+    }
+    if (!has_rows) continue;
+    for (int key0 = 0; key0 < Np; key0 += kKeys) {
+      float u[kF32Tiles][4];
+      const bool full = key0 + kKeys <= Np;
+      if (full) {
+        scores_f32<kDp, true>(f, sK, key0, Np, lane, u);
+      } else {
+        scores_f32<kDp, false>(f, sK, key0, Np, lane, u);
+      }
+      mask(u, w0 + key0, lim, N, n_valid, scale, lane);
+      float alpha[2];
+      softmax_chunk(u, m, l, c, alpha);
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) scale_rows(o, alpha);
+      if (full) {
+        pv_f32<kDp, true, true>(u, sV, key0, Np, lane, o);
+      } else {
+        pv_f32<kDp, false, true>(u, sV, key0, Np, lane, o);
+      }
+    }
+  }
+  if (!has_rows) return;
+  const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+  scale_rows(o, inv);
+  store_rows(o, out + head + static_cast<size_t>(row0) * C, C, N - row0, D, lane);
+}
+
 // ------------------------------------------------------------------- launch
 
 template <typename T, int kDp, bool kRope>
@@ -790,8 +950,31 @@ cudaError_t launch(const T* q, const T* k, const T* v, const float* sn, const fl
   }
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes(N, kDp, kBf16);
-  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  constexpr int kVec = 16 / sizeof(T);
+  const int D = C / H;
+  const int vec = D % kVec == 0 && C % kVec == 0 &&
+                  (reinterpret_cast<size_t>(k) | reinterpret_cast<size_t>(v)) % 16 == 0;
+  VitAttentionPlan plan;
+  if (vit_attention_plan(N, D, kBf16, optin, &plan) != 0 || plan.dp != kDp)
+    return cudaErrorInvalidValue;
+  const size_t smem = plan.smem_bytes;
+  if (plan.windowed) {  // a long token axis: K and V in key windows
+    void (*window)(const T*, const T*, const T*, const float*, const float*, float*, int, int,
+                   int, int, float, int);
+    int grid_x;
+    if constexpr (kBf16) {
+      window = vit_attention_bf16_window_kernel<kDp, kRope>;
+      grid_x = (N + 63) / 64;
+    } else {
+      window = vit_attention_f32_window_kernel<kDp, kRope>;
+      grid_x = ((N + 15) / 16 + kF32Warps - 1) / kF32Warps;
+    }
+    err = allow_smem(window, smem);
+    if (err != cudaSuccess) return err;
+    window<<<dim3(grid_x, H, B), threads, smem, stream>>>(q, k, v, sn, cs, out, N, C, D,
+                                                         n_valid, scale, vec);
+    return cudaGetLastError();
+  }
   err = allow_smem(kernel, smem);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
@@ -804,10 +987,6 @@ cudaError_t launch(const T* q, const T* k, const T* v, const float* sn, const fl
   int chunks = static_cast<int>(std::max(1L, std::min<long>(tiles, slots / heads)));
   const int per_block = (tiles + chunks - 1) / chunks;
   chunks = (tiles + per_block - 1) / per_block;
-  constexpr int kVec = 16 / sizeof(T);
-  const int D = C / H;
-  const int vec = D % kVec == 0 && C % kVec == 0 &&
-                  (reinterpret_cast<size_t>(k) | reinterpret_cast<size_t>(v)) % 16 == 0;
   const int block = kBf16 ? threads : std::min(threads, 32 * per_block);
   kernel<<<dim3(chunks, H, B), block, smem, stream>>>(q, k, v, sn, cs, out, N, C, D, n_valid,
                                                       scale, per_block, vec);
@@ -821,7 +1000,7 @@ cudaError_t launch_depth(const void* q, const void* k, const void* v, const floa
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v);
   constexpr bool kBf16 = !std::is_same<T, float>::value;
-  switch (padded_depth(C / H, kBf16)) {
+  switch (vit_padded_depth(C / H, kBf16)) {
     case 16:
       if constexpr (!kBf16) {
         return launch<T, 16, kRope>(qt, kt, vt, sn, cs, out, B, N, C, H, n_valid, scale, s);
@@ -843,7 +1022,7 @@ template <bool kRope>
 int dispatch(const void* q, const void* k, const void* v, const float* sn, const float* cs,
              float* out, int B, int N, int C, int H, int n_valid, float scale, int bf16,
              void* stream) {
-  if (H <= 0 || C % H != 0 || (C / H) % 2 != 0 || padded_depth(C / H, bf16) == 0 || N <= 0) {
+  if (H <= 0 || C % H != 0 || (C / H) % 2 != 0 || vit_padded_depth(C / H, bf16) == 0 || N <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
@@ -856,18 +1035,16 @@ int dispatch(const void* q, const void* k, const void* v, const float* sn, const
 
 }  // namespace
 
-// The most tokens a launch takes at head dim D (0: D not supported): the
-// staged K and V of one head fill at most the card's shared memory per block.
+// The route switch: the most tokens for which a block holds one head's K and
+// V whole (the card's shared memory per block) at head dim D, 0 where D is
+// not supported. Longer token axes stream K and V in key windows.
 extern "C" int gp2_vit_attention_max_tokens(int D, int bf16) {
-  const int Dp = padded_depth(D, bf16 != 0);
   int dev = 0, optin = 0;
-  if (Dp == 0 || cudaGetDevice(&dev) != cudaSuccess ||
+  if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) {
     return 0;
   }
-  int n = 0;
-  while (smem_bytes(n + 16, Dp, bf16 != 0) <= static_cast<size_t>(optin)) n += 16;
-  return n;
+  return vit_attention_max_tokens(D, bf16, optin);
 }
 
 // q, k, v (B, N, C) float32 (bf16 = 0) or bfloat16 (bf16 = 1), C = H * D;

@@ -4,18 +4,23 @@ The first pick is index 0; each next pick is the argmax of the running min
 squared distance to the picks so far, ties to the lowest index.
 
 ``furthest_point_sample`` launches the CUDA kernel (``csrc/fps.cu``) on a
-CUDA tensor and runs ``fps_plain`` on a CPU tensor.
+CUDA tensor, for any N (past ``MAX_REGISTER_POINTS`` with a float32 scratch
+of B x N for the running distances), and runs ``fps_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from genpose2_tpu_torch.ops import _cuda
 
 _BIG = 1e10
+# plan.cuh:kFpsMaxSlots: larger clouds take the kernel's wide route, whose
+# running distances live in a scratch the wrapper allocates
+MAX_REGISTER_POINTS = 8192
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -38,17 +43,28 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _entry(lib: ctypes.CDLL):
+    """``gp2_fps`` with its argument types set, once per loaded library."""
+    fn = lib.gp2_fps
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     B, N, _ = xyz.shape
     _cuda.require(xyz, "xyz", torch.float32, (B, N, 3), xyz.device)
     if not 0 < npoint <= N:
         raise ValueError(f"npoint {npoint} out of range for N={N}")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    scratch = None
+    if N > MAX_REGISTER_POINTS:
+        scratch = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
     lib = _cuda.library("fps")
-    lib.gp2_fps.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_void_p, ctypes.c_void_p]
-    lib.gp2_fps.restype = ctypes.c_int
-    code = lib.gp2_fps(xyz.data_ptr(), B, N, npoint, out.data_ptr(), _cuda.stream_ptr(xyz))
+    code = _entry(lib)(xyz.data_ptr(), B, N, npoint, out.data_ptr(), _cuda.stream_ptr(xyz),
+                       None if scratch is None else scratch.data_ptr())
     _cuda.check(lib, code, "fps")
     _cuda.launch_counts["fps"] += 1
     return out

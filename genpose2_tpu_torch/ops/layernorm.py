@@ -21,6 +21,7 @@ version on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -65,49 +66,45 @@ def _check(x, h, vectors):
     return x.numel() // D, D
 
 
+@functools.lru_cache(maxsize=None)
+def _entry(lib: ctypes.CDLL, name: str, pointers: int):
+    """The library's entry ``name`` with its argument types set, once per
+    loaded library (a wrapper call costs more host time than the kernel
+    takes on the card)."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                  ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(key, name, args, x, rows, D, eps):
+    """Launch entry ``name`` on the tensors ``args`` (x first)."""
+    lib = _cuda.library("layernorm")
+    code = _entry(lib, name, len(args))(*(t.data_ptr() for t in args), rows, D, eps,
+                                        int(x.dtype == torch.bfloat16), _cuda.stream_ptr(x))
+    _cuda.check(lib, code, key)
+    _cuda.launch_counts[key] += 1
+
+
 def _ln_cuda(x, scale, bias, eps):
     rows, D = _check(x, None, {"scale": scale, "bias": bias})
     ln = torch.empty_like(x)
-    lib = _cuda.library("layernorm")
-    lib.gp2_ln.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                                   ctypes.c_int, ctypes.c_void_p]
-    lib.gp2_ln.restype = ctypes.c_int
-    code = lib.gp2_ln(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), ln.data_ptr(), rows, D,
-                      eps, int(x.dtype == torch.bfloat16), _cuda.stream_ptr(x))
-    _cuda.check(lib, code, "layernorm")
-    _cuda.launch_counts["layernorm"] += 1
+    _launch("layernorm", "gp2_ln", (x, scale, bias, ln), x, rows, D, eps)
     return ln
 
 
 def _residual_ln_cuda(x, h, scale, bias, eps):
     rows, D = _check(x, h, {"scale": scale, "bias": bias})
     ln = torch.empty_like(x)
-    lib = _cuda.library("layernorm")
-    lib.gp2_residual_ln.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                                             ctypes.c_float, ctypes.c_int,
-                                                             ctypes.c_void_p]
-    lib.gp2_residual_ln.restype = ctypes.c_int
-    code = lib.gp2_residual_ln(x.data_ptr(), h.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                               ln.data_ptr(), rows, D, eps, int(x.dtype == torch.bfloat16),
-                               _cuda.stream_ptr(x))
-    _cuda.check(lib, code, "residual_layernorm")
-    _cuda.launch_counts["residual_layernorm"] += 1
+    _launch("residual_layernorm", "gp2_residual_ln", (x, h, scale, bias, ln), x, rows, D, eps)
     return ln
 
 
 def _add_ln_cuda(x, h, gamma, scale, bias, eps):
     rows, D = _check(x, h, {"gamma": gamma, "scale": scale, "bias": bias})
     x2, ln = torch.empty_like(x), torch.empty_like(x)
-    lib = _cuda.library("layernorm")
-    lib.gp2_add_ln.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                                        ctypes.c_float, ctypes.c_int,
-                                                        ctypes.c_void_p]
-    lib.gp2_add_ln.restype = ctypes.c_int
-    code = lib.gp2_add_ln(x.data_ptr(), h.data_ptr(), gamma.data_ptr(), scale.data_ptr(),
-                          bias.data_ptr(), x2.data_ptr(), ln.data_ptr(), rows, D, eps,
-                          int(x.dtype == torch.bfloat16), _cuda.stream_ptr(x))
-    _cuda.check(lib, code, "add_layernorm")
-    _cuda.launch_counts["add_layernorm"] += 1
+    _launch("add_layernorm", "gp2_add_ln", (x, h, gamma, scale, bias, x2, ln), x, rows, D, eps)
     return x2, ln
 
 

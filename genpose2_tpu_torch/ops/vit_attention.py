@@ -19,10 +19,8 @@ values the caller slices off.
   head-major and pads N for Mosaic; the result is the same function.
 
 Each launches its entry of ``csrc/vit_attention.cu`` on CUDA tensors and runs
-its ``_plain`` version on CPU tensors. The kernel holds one head's K and V in
-shared memory, so a launch takes at most ``vit_attention_max_tokens(D,
-dtype)`` tokens (at head dim 64: 896 in bf16, 416 in float32); past that, and
-for a head dim above 128, the wrapper raises a ValueError.
+its ``_plain`` version on CPU tensors, for any N and head dims to 128 (a wider
+head raises a ValueError).
 """
 
 from __future__ import annotations
@@ -78,9 +76,10 @@ def _max_tokens(device_index: int, head_dim: int, bf16: int) -> int:
 
 
 def vit_attention_max_tokens(head_dim: int, dtype: torch.dtype, device=None) -> int:
-    """The most tokens one launch of the kernel takes on the card (the current
-    one when ``device`` is None) at this head dim and dtype (0: the head dim
-    is not supported)."""
+    """The kernel's route switch on the card (the current one when ``device``
+    is None) at this head dim and dtype: up to this many tokens a block holds
+    one head's K and V whole, past it K and V stream through shared memory in
+    key windows (0: the head dim is not supported)."""
     index = torch.cuda.current_device() if device is None else torch.device(device).index
     return _max_tokens(index if index is not None else torch.cuda.current_device(), head_dim,
                        int(dtype == torch.bfloat16))
@@ -106,12 +105,8 @@ def _vit_attention_cuda(entry, key, q, k, v, num_heads, n_valid, tables=()):
     for name, t in zip(("sin", "cos"), tables):
         _cuda.require(t, name, torch.float32, (N, C // num_heads), dev)
     D = C // num_heads
-    limit = vit_attention_max_tokens(D, q.dtype, dev)
-    if limit == 0:
+    if vit_attention_max_tokens(D, q.dtype, dev) == 0:
         raise ValueError(f"head dim {D}: the kernel takes head dims up to 128")
-    if N > limit:
-        raise ValueError(f"{N} tokens: the kernel holds a head's K and V in shared memory, "
-                         f"at most {limit} tokens at head dim {D} in {q.dtype}")
     out = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     fn = _entry(entry, len(tables))
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in tables),

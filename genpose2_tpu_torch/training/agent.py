@@ -394,6 +394,10 @@ class ScaleAgent(_Trainable):
         return loss, dict(zip(state.params, grads))
 
     @torch.no_grad()
-    def predict(self, pts_feat: torch.Tensor, axes: torch.Tensor) -> torch.Tensor:
-        """pts_feat (B, F), axes (B, 3, 3) -> box side lengths (B, 3)."""
-        return self.model(pts_feat.to(self.device), axes.to(self.device))
+    def predict(self, pts_feat: torch.Tensor, axes: torch.Tensor,
+                state: Optional[TrainState] = None, use_ema: bool = True) -> torch.Tensor:
+        """pts_feat (B, F), axes (B, 3, 3) -> box side lengths (B, 3). With a
+        train state the EMA weights run unless ``use_ema=False`` (see
+        ``weights``); without one, the model's own."""
+        with self.weights(state, use_ema):
+            return self.model(pts_feat.to(self.device), axes.to(self.device))

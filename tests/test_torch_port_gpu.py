@@ -92,13 +92,33 @@ def test_fps_kernel_matches_plain(card, N, B, cloud):
             assert not got.any()
 
 
-def test_fps_kernel_refuses_past_its_plan(card):
-    """N past the plan's 8,192 register slots raises; it never runs the plain version."""
-    x = torch.zeros((1, 8193, 3), device=card)
+@pytest.mark.parametrize("B,N,npoint,cloud", [
+    (1, 8193, 64, "uniform"),        # one point past the register plan: the wide route
+    (12, 16384, 512, "uniform"),     # chip_smoke.py's shapes (a frame call's 12 objects)
+    (12, 32768, 1024, "uniform"),
+    (2, 20000, 300, "duplicates"),   # ties across the wide route's threads
+    (1, 9000, 9000, "uniform"),      # every point picked
+    (2, 40000, 256, "uniform"),      # a larger cloud
+    (3, 32769, 64, "all_equal"),     # every distance 0
+])
+def test_fps_kernel_refuses_past_its_plan(card, B, N, npoint, cloud):
+    """Past the register plan's 8,192 points the wide route runs, exact, one
+    launch; what no plan covers (npoint past N) raises before any launch and
+    never runs the plain version."""
+    rng = np.random.default_rng(N + B)
+    xyz = rng.uniform(-0.5, 0.5, size=(B, N, 3)).astype(np.float32)
+    if cloud == "duplicates":  # every point four times, far apart in index
+        xyz[:, N // 4:] = np.tile(xyz[:, :N // 4], (1, 4, 1))[:, :N - N // 4]
+    elif cloud == "all_equal":
+        xyz[:] = xyz[:, :1]
+    x = torch.from_numpy(xyz).to(card)
     before = _cuda.launch_counts["fps"]
-    with pytest.raises(RuntimeError, match="fps"):
-        furthest_point_sample(x, 16)
-    assert _cuda.launch_counts["fps"] == before
+    got = furthest_point_sample(x, npoint)
+    assert _cuda.launch_counts["fps"] == before + 1
+    torch.testing.assert_close(got, fps_plain(x, npoint), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="npoint"):
+        furthest_point_sample(x, N + 1)
+    assert _cuda.launch_counts["fps"] == before + 1
 
 
 def test_ball_count_kernel_matches_plain(card):
@@ -107,6 +127,90 @@ def test_ball_count_kernel_matches_plain(card):
     new_xyz = xyz[:, :300].contiguous()
     torch.testing.assert_close(ball_count(xyz, new_xyz, 0.1), ball_count_plain(xyz, new_xyz, 0.1),
                                rtol=0, atol=0)
+
+
+def _ellipsoids(rng, B, N):
+    """chip_smoke.py's clouds: ellipsoid surfaces of 4-15 cm semi-axes."""
+    d = rng.normal(size=(B, N, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    c = rng.uniform([-0.3, -0.3, 0.5], [0.3, 0.3, 1.2], size=(B, 1, 3))
+    return (d * rng.uniform(0.04, 0.15, size=(B, 1, 3)) + c
+            + rng.normal(0, 0.002, size=(B, N, 3))).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,N,M,radius,cloud", [
+    (64, 1024, 512, 0.02, "ellipsoid"),    # the dense stage's centroid order, a request
+    (12, 1024, 512, 0.02, "ellipsoid"),    # a frame call (8 lanes x 2 centroids a block)
+    (64, 2048, 512, 0.02, "ellipsoid"),    # the dense path: one tile of 2,048
+    (1, 77, 20, 0.25, "uniform"),          # fewer points than a thread's groups
+    (140, 512, 256, 0.1, "uniform"),       # more objects than SMs
+    (3, 1024, 300, 0.1, "uniform"),        # M not a multiple of the block's centroids
+    (2, 2047, 129, 0.2, "uniform"),        # one point short of a 2,048-point tile
+    (2, 2049, 129, 0.2, "uniform"),        # one point into the second tile; odd N
+    (1, 32768, 512, 0.05, "uniform"),      # 16 tiles
+    (12, 32768, 512, 0.02, "ellipsoid"),
+    (2, 512, 64, 0.25, "grid"),            # points at the radius: d2 == r2 is no hit
+    (3, 1000, 50, 0.1, "all_equal"),       # every point on every centroid
+    (2, 5, 3, 0.1, "empty_radius"),        # no hit at all
+])
+def test_ball_count_kernel_shapes(card, B, N, M, radius, cloud):
+    """Counts equal the plain version's at the paths' shapes, N 77-32,768,
+    B 1-140, across tile edges, with ties at the radius and an all-equal
+    cloud; one launch."""
+    rng = np.random.default_rng(N + M)
+    if cloud == "ellipsoid":
+        xyz = _ellipsoids(rng, B, N)
+    elif cloud == "grid":  # multiples of 1/8, exact in float32: d2 == 1/16 == r2 occurs
+        xyz = (rng.integers(0, 8, size=(B, N, 3)) * 0.125).astype(np.float32)
+    else:
+        xyz = rng.uniform(-0.5, 0.5, size=(B, N, 3)).astype(np.float32)
+        if cloud == "all_equal":
+            xyz[:] = xyz[:, :1]
+    new_xyz = xyz[:, rng.choice(N, M, replace=N < M)].copy()
+    if cloud == "empty_radius":
+        new_xyz += 10.0
+    x, c = torch.from_numpy(xyz).to(card), torch.from_numpy(new_xyz).to(card)
+    before = _cuda.launch_counts["ball_count"]
+    got = ball_count(x, c, radius)
+    assert _cuda.launch_counts["ball_count"] == before + 1
+    want = ball_count_plain(x, c, radius)
+    assert got.dtype == torch.int32 and got.shape == (B, M)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if cloud == "grid":  # the ties were there to be missed
+        d2 = ((x[:, None] - c[:, :, None]) ** 2).sum(-1)
+        assert bool((d2 == 0.0625).any())
+    if cloud == "all_equal":
+        assert bool((got == N).all())
+    if cloud == "empty_radius":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("B,M,nsample,far_hits", [
+    (2, 64, 32, False),   # random hits in every tile; fewer than nsample: every tile scanned
+    (1, 512, 8, False),   # early exits at different tiles
+    (2, 37, 16, True),    # centroid 0's hits at the tile edges
+])
+def test_ball_query_tiles(card, B, M, nsample, far_hits):
+    """N = 32,768: eight 4,096-point tiles; hits in ascending order across
+    tile edges, padding with the first hit, all zeros without hits."""
+    N = 32768
+    rng = np.random.default_rng(M + nsample)
+    xyz = rng.uniform(-0.5, 0.5, size=(B, N, 3)).astype(np.float32)
+    new_xyz = xyz[:, rng.choice(N, M, replace=False)].copy()
+    if far_hits:
+        new_xyz[:, 0] = 5.0
+        new_xyz[:, 1] = 9.0  # no hit
+        edges = [4094, 4095, 4096, 4097, 8191, 8192, 12288, 32767]
+        xyz[:, edges] = 5.0 + rng.uniform(-0.01, 0.01, size=(B, len(edges), 3))
+    x, c = torch.from_numpy(xyz).to(card), torch.from_numpy(new_xyz).to(card)
+    before = _cuda.launch_counts["ball_query"]
+    got = ball_query(x, c, 0.05, nsample)
+    assert _cuda.launch_counts["ball_query"] == before + 1
+    torch.testing.assert_close(got, ball_query_plain(x, c, 0.05, nsample), rtol=0, atol=0)
+    if far_hits:
+        want0 = edges[:nsample] + [edges[0]] * (nsample - len(edges))
+        assert got[:, 0].tolist() == [want0] * B
+        assert not got[:, 1].any()
 
 
 @pytest.mark.parametrize("B,N,M,radius,nsample,far", [
@@ -568,13 +672,19 @@ def test_rope_vit_attention_kernel_matches_plain(card, bf16, B, N, n_valid, C):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("C", [48, 384])
 def test_vit_attention_token_limit(card, entry, bf16, C):
-    """At the shared-memory limit the kernel matches its plain version; one
-    token past it the wrapper raises a ValueError that names the limit."""
+    """At the route switch (a head's K and V whole in shared memory), one
+    token past it (key windows) and at crops of 512 and 640 px (1,029 and
+    1,605 tokens) the kernel matches its plain version; a head dim past 128
+    stays refused with a ValueError."""
     dt = torch.bfloat16 if bf16 else torch.float32
     limit = vit_attention_max_tokens(C // 6, dt)
     assert limit >= 416  # the flagship's 272 tokens, and room beyond them
     g = torch.Generator().manual_seed(33)
-    for N in (limit, limit + 1):
+    kern, plain = ((vit_attention, vit_attention_plain) if entry == "unpadded"
+                   else (vit_attention_tm, vit_attention_tm_plain))
+    key = {"padded": "vit_attention", "unpadded": "vit_attention_unpadded",
+           "rope": "vit_attention_rope"}[entry]
+    for N in (limit, limit + 1, 1029, 1605):
         q, k, v = (_normal(g, (1, N, C), card, dt) for _ in range(3))
         tab = dict(zip(("sin", "cos"), _rope_tables(N, N, C // 6, card))) if entry == "rope" else {}
 
@@ -583,15 +693,96 @@ def test_vit_attention_token_limit(card, entry, bf16, C):
                 return f(q, k, v, 6, n_valid=N - 3)
             return f(q, k, v, 6, n_valid=N - 3, **tab)
 
-        kern, plain = ((vit_attention, vit_attention_plain) if entry == "unpadded"
-                       else (vit_attention_tm, vit_attention_tm_plain))
-        if N > limit:
-            with pytest.raises(ValueError, match=f"at most {limit} tokens"):
-                run(kern)
-            continue
+        before = _cuda.launch_counts[key]
+        got = run(kern)
+        assert _cuda.launch_counts[key] == before + 1
         tol = 2e-2 if bf16 else 1e-5
-        torch.testing.assert_close(run(kern)[:, :N - 3], run(plain)[:, :N - 3], rtol=tol,
-                                   atol=tol)
+        torch.testing.assert_close(got[:, :N - 3], run(plain)[:, :N - 3], rtol=tol, atol=tol)
+        assert bool(torch.isfinite(got).all())
+    q = _normal(g, (1, 40, 6 * 136), card, dt)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        kern(q, q, q, 6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,N,n_valid,C", [(12, 1029, 1029, 384), (12, 1605, 1605, 384),
+                                           (2, 1605, 1600, 768), (2, 1040, 1029, 96)])
+def test_vit_attention_long_axes(card, bf16, B, N, n_valid, C):
+    """The three entries past the switch at a frame call's batch: crops of
+    512 and 640 px (patch 16 + 5 tokens), head dim 128 and 16; to the rope
+    =False kernel's bounds."""
+    g = torch.Generator().manual_seed(34)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    H = 6
+    q, k, v = (_normal(g, (B, N, C), card, dt) for _ in range(3))
+    sin, cos = _rope_tables(N, n_valid, C // H, card)
+    tol = 2e-2 if bf16 else 1e-5
+    for got, want in (
+            (vit_attention_tm(q, k, v, H, n_valid), vit_attention_tm_plain(q, k, v, H, n_valid)),
+            (vit_attention(q, k, v, H, n_valid), vit_attention_plain(q, k, v, H, n_valid)),
+            (vit_attention_tm(q, k, v, H, n_valid, sin=sin, cos=cos),
+             vit_attention_tm_plain(q, k, v, H, n_valid, sin=sin, cos=cos))):
+        torch.testing.assert_close(got[:, :n_valid], want[:, :n_valid], rtol=tol, atol=tol)
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [96, 190, 384, 1024])  # 190: no multiple of 4, the scalar route
+@pytest.mark.parametrize("rows", [1, 7, 1000, 17409])  # 17,409: the ViT's 64 x 272 rows + 1
+def test_layernorm_rows(card, bf16, D, rows):
+    """The three LayerNorm entries at ragged row counts, on the vector route
+    (D a multiple of 4) and the scalar one; a width past 1,024 stays
+    refused."""
+    g = torch.Generator().manual_seed(D + rows)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    x, h = _normal(g, (rows, D), card, dt) * 2.0 + 0.5, _normal(g, (rows, D), card, dt)
+    gamma, scale, bias = (_normal(g, (D,), card) for _ in range(3))
+    tol = 2e-2 if bf16 else 1e-5  # as test_layernorm_kernels_match_plain
+    counts = dict(_cuda.launch_counts)
+    torch.testing.assert_close(fast_layernorm(x, scale, bias), fast_layernorm_plain(x, scale, bias),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(fast_residual_layernorm(x, h, scale, bias),
+                               fast_residual_layernorm_plain(x, h, scale, bias), rtol=tol,
+                               atol=tol)
+    for got, want in zip(fast_add_layernorm(x, h, gamma, scale, bias),
+                         fast_add_layernorm_plain(x, h, gamma, scale, bias)):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    for key in ("layernorm", "residual_layernorm", "add_layernorm"):
+        assert _cuda.launch_counts[key] == counts.get(key, 0) + 1
+    wide = _normal(g, (3, 1025), card, dt)
+    with pytest.raises(ValueError, match="at most 1024"):
+        fast_layernorm(wide, _normal(g, (1025,), card), _normal(g, (1025,), card))
+
+
+def _offset(gen, shape, card, dtype=torch.float32):
+    """A contiguous tensor one element past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return _normal(gen, (n + 1,), card, dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [96, 384, 1024])
+def test_layernorm_misaligned_operands(card, bf16, D):
+    """Operands off a 16-byte boundary (contiguous views one element into a
+    buffer) take the scalar route of each entry, held to the plain version."""
+    g = torch.Generator().manual_seed(D + 5)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    rows = 1000
+    x, h = _offset(g, (rows, D), card, dt), _offset(g, (rows, D), card, dt)
+    gamma, scale, bias = (_offset(g, (D,), card) for _ in range(3))
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0 and scale.data_ptr() % 16 != 0
+    tol = 2e-2 if bf16 else 1e-5  # as test_layernorm_kernels_match_plain
+    counts = dict(_cuda.launch_counts)
+    torch.testing.assert_close(fast_layernorm(x, scale, bias), fast_layernorm_plain(x, scale, bias),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(fast_residual_layernorm(x, h, scale, bias),
+                               fast_residual_layernorm_plain(x, h, scale, bias), rtol=tol,
+                               atol=tol)
+    for got, want in zip(fast_add_layernorm(x, h, gamma, scale, bias),
+                         fast_add_layernorm_plain(x, h, gamma, scale, bias)):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    for key in ("layernorm", "residual_layernorm", "add_layernorm"):
+        assert _cuda.launch_counts[key] == counts.get(key, 0) + 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

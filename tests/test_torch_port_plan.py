@@ -2,8 +2,8 @@
 
 plan.cuh is plain C++: the host compiler builds it here into a small library
 with its C functions exported, so the plans that ode_rk4.cu, fused_sa.cu,
-relpe_attention.cu, fps.cu and ball_query.cu launch with are checked without
-a card: for the flagship request, a tracking or frame call, the dense
+relpe_attention.cu, fps.cu, ball_query.cu, ball_count.cu and vit_attention.cu
+launch with are checked without a card: for the flagship request, a tracking or frame call, the dense
 configuration, the training path and the tests' shapes, each plan fits a
 block's 227 KB of shared memory, its sections do not overlap and start
 16-byte aligned, and the tiles are the ones the source notes describe.
@@ -17,6 +17,7 @@ from pathlib import Path
 import pytest
 
 from genpose2_tpu_torch.config import PointNet2Config, tiny_test_config
+from genpose2_tpu_torch.ops.fps import MAX_REGISTER_POINTS
 
 CSRC = Path(__file__).resolve().parents[1] / "genpose2_tpu_torch" / "ops" / "csrc"
 SMEM_LIMIT = 232448  # 227 KB: the dynamic shared memory of one H100 block
@@ -28,8 +29,12 @@ SA_FIELDS = ("rows", "centroids", "nbuf", "ring_elems", "lda", "ldb", "max_cout"
              "off_a", "off_b", "off_ring")
 RELPE_FIELDS = ("heads", "warps", "tq", "kc", "nbuf", "dp", "ldkv", "ldb", "blocks", "smem_bytes",
                 "off_cst", "off_qxyz", "off_kxyz", "off_bias", "off_k", "off_v")
-FPS_FIELDS = ("warps", "p", "smem_bytes", "off_x", "off_y", "off_z", "off_val", "off_idx")
-BQ_FIELDS = ("warps", "blocks", "smem_bytes", "off_xyz")
+FPS_FIELDS = ("warps", "p", "wide", "smem_bytes", "off_x", "off_y", "off_z", "off_val",
+              "off_idx")
+BQ_FIELDS = ("warps", "blocks", "tile", "smem_bytes", "off_xyz")
+BC_FIELDS = ("lanes", "cpt", "splits", "centroids", "blocks", "tile", "smem_bytes", "off_pts",
+             "off_cnt")
+VIT_FIELDS = ("dp", "windowed", "keys", "smem_bytes")
 
 
 @pytest.fixture(scope="module")
@@ -48,6 +53,8 @@ def plan_lib(tmp_path_factory):
     lib.gp2_relpe_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.gp2_fps_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.gp2_ball_query_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.gp2_ball_count_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.gp2_vit_attention_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return lib
 
 
@@ -230,15 +237,43 @@ def test_fps_plan(plan_lib, N, B):
     # every point in a register slot, at most 32 a thread, and under 2N slots
     assert threads * p["p"] >= N and p["p"] <= 32 and threads * p["p"] < max(2 * N, 256)
     assert p["warps"] in (1, 2, 4, 8, 16) and p["p"] in (4, 8, 16, 32)
+    assert p["wide"] == 0
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     _assert_layout(p, [("off_x", 4 * r4(N)), ("off_y", 4 * r4(N)), ("off_z", 4 * r4(N)),
                        ("off_val", 4 * r4(2 * p["warps"])), ("off_idx", 4 * r4(2 * p["warps"]))])
 
 
+def test_fps_wide_route_starts_past_the_wrappers_constant(plan_lib):
+    # ops/fps.py allocates the wide route's scratch past MAX_REGISTER_POINTS
+    assert fps_plan(plan_lib, MAX_REGISTER_POINTS, 64)["wide"] == 0
+    assert fps_plan(plan_lib, MAX_REGISTER_POINTS + 1, 64)["wide"] == 1
+
+
 def test_fps_plan_refuses(plan_lib):
-    assert fps_plan(plan_lib, 8193, 1) is None  # past 16 warps x 32 x 16 register slots
+    # no cloud or no object; every N >= 1 has a plan (the wide route past 8,192)
     assert fps_plan(plan_lib, 0, 4) is None
     assert fps_plan(plan_lib, 1024, 0) is None
+    assert fps_plan(plan_lib, 1024, 4, sms=0) is None
+
+
+# the wide route: just past the register plan's 8,192 points, the gpu tests'
+# and chip_smoke.py's 16,384 and 32,768 at a frame call's 12 objects and at
+# B = 1 and 64, and larger clouds
+FPS_WIDE_CASES = [(N, B) for N in (8193, 16384, 32768) for B in (1, 12, 64)]
+FPS_WIDE_CASES += [(32769, 2), (40000, 2), (100000, 12)]
+
+
+@pytest.mark.parametrize("N,B", FPS_WIDE_CASES, ids=[f"N{n}_B{b}" for n, b in FPS_WIDE_CASES])
+def test_fps_wide_plan(plan_lib, N, B):
+    p = fps_plan(plan_lib, N, B)
+    # 32 warps, the running distances in the wrapper's global scratch (no
+    # registers a thread), which the wrapper allocates past its constant
+    assert p is not None and p["wide"] == 1 and p["warps"] == 32 and p["p"] == 0
+    assert N > MAX_REGISTER_POINTS
+    # no coordinates in shared memory: only the 32 warps' partials
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    _assert_layout(p, [("off_x", 0), ("off_y", 0), ("off_z", 0), ("off_val", 4 * r4(64)),
+                       ("off_idx", 4 * r4(64))])
 
 
 def bq_plan(lib, B, N, M, nsample, sms=H100_SMS):
@@ -267,10 +302,116 @@ def test_ball_query_plan(plan_lib, B, N, M, nsample):
     assert p["blocks"] == B * -(-M // p["warps"])  # one centroid a warp
     if B >= 64:  # the training path's stages fill the 132 SMs
         assert p["blocks"] >= H100_SMS
+    assert p["tile"] == N  # the whole cloud in one tile
     _assert_layout(p, [("off_xyz", 4 * (-(-3 * N // 4) * 4))])  # the cloud, 12 bytes a point
 
 
+# clouds past one tile: just past it, the old whole-cloud limit (~19,370
+# points) and the gpu tests' and chip_smoke.py's 32,768 at B = 1 and 12
+BQ_TILED_CASES = [(1, 4097, 64, 32), (2, 20000, 64, 32), (1, 32768, 512, 32),
+                  (12, 32768, 512, 64), (3, 100000, 200, 16)]
+
+
+@pytest.mark.parametrize("B,N,M,nsample", BQ_TILED_CASES,
+                         ids=[f"B{b}_N{n}_M{m}_S{s}" for b, n, m, s in BQ_TILED_CASES])
+def test_ball_query_tiled_plan(plan_lib, B, N, M, nsample):
+    p = bq_plan(plan_lib, B, N, M, nsample)
+    assert p is not None and p["blocks"] == B * -(-M // p["warps"])
+    # 4,096-point tiles: whole 128-point windows, 48 KB
+    assert p["tile"] == 4096 and p["tile"] % 128 == 0
+    _assert_layout(p, [("off_xyz", 12 * 4096)])
+
+
 def test_ball_query_plan_refuses(plan_lib):
-    assert bq_plan(plan_lib, 2, 20000, 64, 32) is None  # the cloud past 227 KB
+    # no object, centroid, point or slot; any N >= 1 has a plan (tiles)
     assert bq_plan(plan_lib, 0, 128, 64, 32) is None
     assert bq_plan(plan_lib, 2, 128, 64, 0) is None
+    assert bq_plan(plan_lib, 2, 128, 0, 32) is None
+    assert bq_plan(plan_lib, 2, 0, 64, 32) is None
+
+
+def bc_plan(lib, B, N, M, sms=H100_SMS):
+    out = (ctypes.c_int * len(BC_FIELDS))()
+    if lib.gp2_ball_count_plan(B, N, M, sms, out) != 0:
+        return None
+    return dict(zip(BC_FIELDS, out))
+
+
+# ball count launches: the dense stage's centroid order at a request's B = 64
+# and a frame call's 12 (M = 512 of 1,024 points, and of the dense path's
+# 2,048), and the gpu tests' shapes (N 77-32,768, B 1-140, ragged M)
+BC_CASES = [(B, N, 512) for B in (64, 12) for N in (1024, 2048)]
+BC_CASES += [(1, 77, 20), (3, 1024, 300), (140, 512, 256), (2, 2047, 129), (2, 2049, 129),
+             (1, 32768, 512), (12, 32768, 512), (5, 0, 7)]
+
+
+@pytest.mark.parametrize("B,N,M", BC_CASES, ids=[f"B{b}_N{n}_M{m}" for b, n, m in BC_CASES])
+def test_ball_count_plan(plan_lib, B, N, M):
+    p = bc_plan(plan_lib, B, N, M)
+    assert p is not None
+    assert (p["lanes"], p["cpt"]) in ((32, 4), (32, 2), (16, 2), (8, 2), (8, 1))
+    assert p["lanes"] * p["splits"] == 256 and p["centroids"] == p["lanes"] * p["cpt"]
+    assert p["blocks"] == B * -(-M // p["centroids"])
+    r4 = -(-N // 4) * 4
+    assert p["tile"] == min(r4, 2048)
+    # the busiest SM holds no more centroids than under any other option
+    load = -(-p["blocks"] // H100_SMS) * p["centroids"]
+    for lanes, cpt in ((32, 4), (32, 2), (16, 2), (8, 2), (8, 1)):
+        assert load <= -(-(B * -(-M // (lanes * cpt))) // H100_SMS) * lanes * cpt
+    if B in (12, 64) and M == 512:  # more than one block an SM
+        assert p["blocks"] > H100_SMS
+    _assert_layout(p, [("off_pts", 16 * p["tile"]), ("off_cnt", 4 * -(-p["centroids"] // 4) * 4)])
+
+
+def test_ball_count_plan_choices(plan_lib):
+    # a request: 128 centroids a block, 256 blocks; a frame call: 16, 384
+    assert {k: bc_plan(plan_lib, 64, 1024, 512)[k] for k in ("lanes", "cpt", "blocks")} == \
+        {"lanes": 32, "cpt": 4, "blocks": 256}
+    assert {k: bc_plan(plan_lib, 12, 1024, 512)[k] for k in ("lanes", "cpt", "blocks")} == \
+        {"lanes": 8, "cpt": 2, "blocks": 384}
+    assert bc_plan(plan_lib, 0, 1024, 512) is None and bc_plan(plan_lib, 2, 1024, 0) is None
+
+
+def vit_plan(lib, N, D, bf16, limit=SMEM_LIMIT):
+    out = (ctypes.c_int * len(VIT_FIELDS))()
+    if lib.gp2_vit_attention_plan(N, D, int(bf16), limit, out) != 0:
+        return None
+    return dict(zip(VIT_FIELDS, out))
+
+
+# (N, head dim, bf16, windowed): the flagship's 272 / 264 padded and 261
+# unpadded tokens, the tiny configs' head dim 8, the old caps (896 bf16, 416
+# float32 at head dim 64) and one past them, crops of 512 and 640 px (1,029
+# and 1,605 tokens), head dim 128
+VIT_CASES = [(272, 64, True, 0), (261, 64, True, 0), (264, 64, False, 0), (261, 64, False, 0),
+             (40, 8, True, 0), (40, 8, False, 0), (896, 64, True, 0), (897, 64, True, 1),
+             (416, 64, False, 0), (417, 64, False, 1), (1029, 64, True, 1),
+             (1605, 64, True, 1), (1029, 64, False, 1), (1605, 64, False, 1),
+             (1605, 128, True, 1), (1605, 128, False, 1), (1605, 16, False, 1)]
+
+
+@pytest.mark.parametrize("N,D,bf16,windowed", VIT_CASES,
+                         ids=[f"N{n}_D{d}_{'bf16' if b else 'f32'}" for n, d, b, _ in VIT_CASES])
+def test_vit_attention_plan(plan_lib, N, D, bf16, windowed):
+    p = vit_plan(plan_lib, N, D, bf16)
+    assert p is not None and p["windowed"] == windowed
+    dp = (64 if D <= 64 else 128) if bf16 else next(d for d in (16, 32, 64, 128) if D <= d)
+    assert p["dp"] == dp
+    # the whole head, or a window of about 64 KB of K and V
+    assert p["keys"] == (-(-N // 16) * 16 if not windowed else
+                         {True: {64: 256, 128: 128}, False: {16: 128, 32: 128, 64: 128,
+                                                             128: 64}}[bf16][dp])
+    row = 2 * 128 * (dp // 64) if bf16 else 2 * 4 * (dp + 4)
+    assert p["smem_bytes"] == p["keys"] * row + (1024 if bf16 else 0) <= SMEM_LIMIT
+    if windowed:
+        assert p["smem_bytes"] <= 68 * 1024  # three blocks an SM
+        # the whole head would not fit: the route switch is the shared memory
+        assert -(-N // 16) * 16 * row + (1024 if bf16 else 0) > SMEM_LIMIT
+
+
+def test_vit_attention_plan_refuses(plan_lib):
+    # head dims above 128 (and none) stay refused; no token, no plan
+    assert vit_plan(plan_lib, 272, 136, True) is None
+    assert vit_plan(plan_lib, 272, 136, False) is None
+    assert vit_plan(plan_lib, 272, 0, True) is None
+    assert vit_plan(plan_lib, 0, 64, True) is None

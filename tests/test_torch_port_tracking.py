@@ -1,8 +1,9 @@
 """The port's video entry point and its pieces against the JAX package's, at
 tiny_test_config: the warm-started sampler (``init_x``, T0 = 0.15 and 0.25,
 fused RK4 and the plain loop), detection-mode energies (t drawn per row),
-the first-frame pose jitter, and ``PoseTracker`` / ``track_video`` over three
-frames.
+the first-frame pose jitter, ``PoseTracker`` / ``track_video`` over three
+frames, and one tracker step through score and energy states trained on
+both sides (EMA).
 
 JAX's draws (prior noise, energy times, jitter) are rebuilt from its keys and
 handed to the port: the two frameworks' random numbers never match.
@@ -14,6 +15,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -199,3 +201,86 @@ def test_track_video_matches_jax(setup, T0, fused):
         for k in ("rotation", "translation", "lengths"):
             np.testing.assert_allclose(g[k].numpy(), w[k], rtol=0, atol=2e-3,
                                        err_msg=f"frame {i} {k}")
+
+
+def _capture_grads():
+    """An optax transform that passes the updates on and keeps them as its
+    state: chained first, its state after a step is the step's gradients."""
+    return optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p),
+                                        lambda u, s, p=None: (u, u))
+
+
+def _dsm_draws(jcfg, key):
+    """The JAX step's DSM draws from its key (genpose2_tpu/training/agent.py:
+    407, diffusion/losses.py:39-44), for the port's ``draws=``."""
+    _, _, k_loss, _ = jax.random.split(key, 4)
+    R, eps = jcfg.train.repeat_num, 1e-5  # VE
+    keys = jax.random.split(k_loss, R) if R > 1 else [k_loss]
+    ts, zs = [], []
+    for k in keys:
+        kt, kz = jax.random.split(k)
+        ts.append(np.asarray(jax.random.uniform(kt, (B, 1), jnp.float32, eps, 1.0)))
+        zs.append(np.asarray(jax.random.normal(kz, (B, 9), jnp.float32)))
+    return {"t": _t(np.stack(ts)), "z": _t(np.stack(zs))}
+
+
+def _trained(jcfg, pcfg, agent_type, seed, jbatch, pbatch, steps=3):
+    """_agents after ``steps`` train steps on both sides from the same weights
+    and batch, at lr 1e-2 without warmup (the EMA then lags the parameters).
+    The port takes its own steps (forward, BatchNorm statistics, clip, Adam,
+    EMA) on the JAX step's draws, fed the JAX step's gradients: Adam's first
+    updates are about lr * sign(g), which flips on gradients near zero
+    (tests/test_torch_port_train_step.py holds the gradients themselves)."""
+    def lr(cfg):
+        return cfg.replace(train=dataclasses.replace(cfg.train, lr=1e-2, warmup=1))
+
+    jcfg, pcfg = lr(jcfg), lr(pcfg)
+    agent = JaxPoseAgent(jcfg, agent_type, steps_per_epoch=4)
+    agent.tx = optax.chain(_capture_grads(), agent.tx)
+    state = jax.jit(agent.init_state)(jax.random.PRNGKey(seed), jbatch)
+    vs = randomize({"params": state.params, "batch_stats": state.batch_stats,
+                    "constants": state.constants}, seed)
+    state = state.replace(params=vs["params"], ema_params=vs["params"],
+                          batch_stats=vs["batch_stats"], constants=vs["constants"],
+                          opt_state=agent.tx.init(vs["params"]))
+    port = PoseAgent(pcfg, agent_type, device="cpu", steps_per_epoch=4)
+    port.model.load_state_dict(posenet_state_dict(vs, pcfg.model))
+    pstate = port.init_state()
+    for i in range(steps):
+        key = jax.random.PRNGKey(400 + seed + i)
+        state, _ = agent.train_step(state, jbatch, key)
+        grads = posenet_state_dict({"params": jax.device_get(state.opt_state[0]),
+                                    "batch_stats": jax.device_get(state.batch_stats),
+                                    "constants": vs["constants"]}, pcfg.model)
+        loss, _, _, bn_stats = port.loss_and_grads(pstate, pbatch,
+                                                   draws=_dsm_draws(jcfg, key))
+        port.apply_gradients(pstate, loss, [grads[k] for k in pstate.params], bn_stats)
+    return agent, jax.device_get(state), port, pstate
+
+
+def test_tracker_step_runs_the_train_states_like_jax(setup):
+    jcfg, pcfg = setup[True]["cfgs"]
+    jb, pb = setup["jb"], setup["pb"]
+    sa, ss, sp, sps = _trained(jcfg, pcfg, "score", 13, jb[0], pb[0])
+    ea, es, ep, eps = _trained(jcfg, pcfg, "energy", 14, jb[0], pb[0])
+    raw = setup["raws"][0]
+    prev = np.concatenate([raw["rotation"][:, :, 0], raw["rotation"][:, :, 1],
+                           raw["translation"]], axis=-1).astype(np.float32)
+    key = jax.random.PRNGKey(15)
+    want = JaxPoseTracker(jcfg, sa, ss, ea, es, T0=0.25, num_steps=STEPS).step(
+        jb[1], jnp.asarray(prev), key)
+    K = jcfg.eval.eval_repeat_num
+    prior = _t(jax_init_sde(jcfg.sde).prior_sample(key, (B * K, 9), T=0.25))
+    tracker = PoseTracker(pcfg, sp, ep, T0=0.25, num_steps=STEPS, score_state=sps,
+                          energy_state=eps)
+    got = tracker.step(pb[1], _t(prev), prior=prior)
+    # the tracking test's bound (test_track_video_matches_jax)
+    for k in ("rotation", "translation", "lengths", "prev_pose"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=2e-3,
+                                   err_msg=k)
+    # the agents' live weights track elsewhere (0.076 apart on this draw):
+    # the states are read
+    live = PoseTracker(pcfg, sp, ep, T0=0.25, num_steps=STEPS).step(pb[1], _t(prev),
+                                                                    prior=prior)
+    assert float((live["prev_pose"] - got["prev_pose"]).abs().max()) > 1e-2
+

@@ -468,6 +468,62 @@ def test_inference_reads_the_ema_like_jax(trained, use_ema):
         assert all(torch.equal(v, before[k]) for k, v in _live(agent).items())
 
 
+@pytest.fixture(scope="module")
+def trained_scale():
+    """JAX's and the port's ScaleAgent after the same three train steps from
+    the same weights and batches (lr 1e-2 without warmup, so that the EMA
+    lags the parameters), and a batch to predict."""
+    jcfg = jax_tiny_config()
+    jcfg = jcfg.replace(train=dataclasses.replace(jcfg.train, lr=1e-2, warmup=1))
+    pcfg = tiny_test_config()
+    pcfg = pcfg.replace(train=dataclasses.replace(pcfg.train, lr=1e-2, warmup=1))
+    rng = np.random.default_rng(73)
+    S_AX, F = 4, 64
+
+    def batch():
+        return {"pts_feat": rng.normal(size=(B, F)).astype(np.float32),
+                "axes_training": rng.normal(size=(B, S_AX, 3, 3)).astype(np.float32),
+                "gt_length": rng.uniform(0.05, 0.3, size=(B, 3)).astype(np.float32)}
+
+    agent = JaxScaleAgent(jcfg, steps_per_epoch=SPE)
+    state = agent.init_state(jax.random.PRNGKey(0), pts_dim=F)
+    vs = randomize({"params": state.params}, 74)
+    state = state.replace(params=vs["params"], ema_params=vs["params"],
+                          opt_state=agent.tx.init(vs["params"]))
+    port = ScaleAgent(pcfg, pts_dim=F, device="cpu", steps_per_epoch=SPE)
+    port.model.load_state_dict(scalenet_state_dict(vs))
+    pstate = port.init_state()
+    for i in range(3):
+        b = batch()
+        state, _ = agent.train_step(state, jax.tree.map(jnp.asarray, b), jax.random.PRNGKey(i))
+        port.train_step(pstate, {k: _t(v) for k, v in b.items()})
+    return {"agent": agent, "state": jax.device_get(state), "port": port, "pstate": pstate,
+            "feat": rng.normal(size=(5, F)).astype(np.float32),
+            "axes": rng.normal(size=(5, 3, 3)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("use_ema", [True, False])
+def test_scale_predict_reads_the_ema_like_jax(trained_scale, use_ema):
+    s = trained_scale
+    # JAX's predict is jitted with only the agent static, so a use_ema other
+    # than the default reaches its Python ``if`` as a tracer: call the
+    # function under the jit
+    want = np.asarray(JaxScaleAgent.predict.__wrapped__(
+        s["agent"], s["state"], jnp.asarray(s["feat"]), jnp.asarray(s["axes"]), use_ema))
+    live = _live(s["port"])
+    got = s["port"].predict(_t(s["feat"]), _t(s["axes"]), state=s["pstate"], use_ema=use_ema)
+    # the scale lengths' float32 bound (tests/test_torch_port_slice.py)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    other = s["port"].predict(_t(s["feat"]), _t(s["axes"]), state=s["pstate"],
+                              use_ema=not use_ema)
+    # three steps at lr 1e-2 leave the two settings far beyond that bound apart
+    assert float((got - other).abs().max()) > 1e-2 * float(got.abs().max())
+    # without a state the model's own (live) weights run, and they are back
+    raw = s["port"].predict(_t(s["feat"]), _t(s["axes"]))
+    assert torch.equal(raw, other if use_ema else got)
+    assert all(torch.equal(v, live[k]) for k, v in _live(s["port"]).items())
+
+
 def test_ema_weights_differ_and_come_back_after_an_error(trained):
     s = trained["score"]
     pbatch = _port_batch(s["batch"])
