@@ -1,4 +1,4 @@
-"""Rotation math on the serving path (port of a subset of
+"""Rotation math of the serving and evaluation paths (port of a subset of
 genpose2_tpu/so3/rotations.py).
 
 Quaternions are (w, x, y, z). The 9D 'rot_matrix' pose is
@@ -68,6 +68,21 @@ def matrix_to_rot6d_cols(R: torch.Tensor) -> torch.Tensor:
     return torch.cat([R[..., :, 0], R[..., :, 1]], dim=-1)
 
 
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions, (..., 4) x (..., 4) -> (..., 4)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
 def axis_angle_to_matrix(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Rodrigues: axis (..., 3) (normalised here), angle (...) radians -> (..., 3, 3)."""
     axis = _normalize(axis)
@@ -111,6 +126,40 @@ def normalize_rotation(rotation: torch.Tensor, pose_mode: str) -> torch.Tensor:
     raise NotImplementedError(f"pose_mode {pose_mode!r} is not ported yet (see ROADMAP.md)")
 
 
+def inverse_RT(R: torch.Tensor, t: torch.Tensor):
+    """Invert (R (..., 3, 3), t (..., 3)) -> (R^T, -R^T t)."""
+    Rinv = R.transpose(-1, -2)
+    return Rinv, -(Rinv * t[..., None, :]).sum(-1)
+
+
+def transform_batch_pts(pts: torch.Tensor, pose: torch.Tensor, pose_mode: str = "rot_matrix",
+                        inverse_pose: bool = False) -> torch.Tensor:
+    """Apply the pose [rotation, translation] (..., 9) to the xyz channels of
+    points (..., N, C >= 3); the other channels pass through. Only
+    'rot_matrix' is ported (``get_rot_matrix``)."""
+    R = get_rot_matrix(pose[..., :-3], pose_mode)
+    t = pose[..., -3:]
+    if inverse_pose:
+        R, t = inverse_RT(R, t)
+    xyz = (R[..., None, :, :] * pts[..., None, :3]).sum(-1) + t[..., None, :]
+    return torch.cat([xyz, pts[..., 3:]], dim=-1)
+
+
+def average_quaternion_batch(Q: torch.Tensor, weights=None) -> torch.Tensor:
+    """Weighted chordal mean of quaternions Q (B, K, 4) wxyz -> (B, 4): the
+    eigenvector of the largest eigenvalue of the weighted outer-product matrix
+    of the sign-aligned (w > 0) quaternions, by ``torch.linalg.eigh``. Its
+    sign is arbitrary: it is fixed to w > 0, and a w of exactly 0 flips."""
+    B, K, _ = Q.shape
+    if weights is None:
+        weights = torch.full((B, K), 1.0 / K, dtype=Q.dtype, device=Q.device)
+    oriented = torch.where(Q[..., 0:1] > 0, Q, -Q)
+    A = torch.einsum("bki,bkj,bk->bij", oriented, oriented, weights)
+    A = A / weights.sum(-1)[:, None, None]
+    q = torch.linalg.eigh(A).eigenvectors[..., -1]
+    return torch.where(q[..., 0:1] > 0, q, -q)
+
+
 def average_quaternion_batch_fast(Q: torch.Tensor, weights=None, num_iters: int = 40):
     """Weighted chordal mean of quaternions Q (B, K, 4) -> (B, 4): the top
     eigenvector of the weighted outer-product matrix by ``num_iters``
@@ -140,3 +189,11 @@ def encode_axes(axes: torch.Tensor, dim: int) -> torch.Tensor:
     exponent = (2.0 ** torch.arange(dim, dtype=flat.dtype, device=flat.device)).reshape(1, 1, -1)
     return torch.cat([torch.sin(exponent * flat).reshape(bs, -1),
                       torch.cos(exponent * flat).reshape(bs, -1)], dim=-1)
+
+
+def rotation_angle_deg(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle between rotation matrices (..., 3, 3), in degrees: the
+    trace of R1 R2^T as float32 products, clipped, then arccos."""
+    d = (R1 * R2).sum(-1)
+    tr = d[..., 0] + d[..., 1] + d[..., 2]
+    return torch.rad2deg(torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0)))

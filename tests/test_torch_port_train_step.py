@@ -383,9 +383,29 @@ def test_trainer_energy_with_ranking_takes_candidates():
     last = trainer.train_epoch(batches, torch.Generator().manual_seed(9))
     assert trainer.state.step == 2 and "ranking_loss" in last
     assert bool(torch.isfinite(last["loss"]))
-    # candidates are drawn by candidate_metrics_for_ranking, not ported yet
-    with pytest.raises(NotImplementedError):
-        trainer.train_epoch([_port_batch(_batch(cfg, 62))])
+    # a prepared batch without candidates: the Trainer draws ranking_num of
+    # them from the frozen score agent (its EMA weights), with their errors
+    score = _randomized_agent(cfg, "score", 63)
+    ranking = Trainer(cfg, "energy_with_ranking", steps_per_epoch=SPE, device="cpu",
+                      frozen_score=(score, score.init_state()))
+    ranking.init()
+    rng = np.random.default_rng(62)
+    R = np.linalg.qr(rng.normal(size=(B, 3, 3)))[0]
+    R *= np.sign(np.linalg.det(R))[:, None, None]
+    raw = _port_batch(_batch(cfg, 62))
+    batch = dict(raw, pts_center=raw["pts"].mean(1), gt_rotation=_t(R),
+                 gt_translation=_t(rng.uniform(-0.1, 0.1, (B, 3)) + [0.0, 0.0, 0.8]),
+                 sym_info=torch.tensor([[0, 2, 1, 0]] * B, dtype=torch.int32))
+    prepared = ranking._prepare(batch, torch.Generator().manual_seed(64))
+    num = cfg.train.ranking_num
+    assert prepared["candidate_poses"].shape == (B, num, 9)
+    assert prepared["candidate_metrics"].shape == (B, num, 2)
+    assert bool((prepared["candidate_metrics"][..., 0] >= 0).all())
+    last = ranking.train_epoch([batch], torch.Generator().manual_seed(65))
+    assert ranking.state.step == 1 and "ranking_loss" in last
+    assert bool(torch.isfinite(last["loss"]))
+    with pytest.raises(ValueError, match="frozen score"):  # no agent to draw them from
+        trainer.train_epoch([batch])
 
 
 # ------------------------------------------------------------------ use_ema
