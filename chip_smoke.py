@@ -90,6 +90,24 @@ Phases, one JSON line each:
             steps and objects a step as its bookkeeping predicts (put-backs,
             refills), each video against track_video on it alone with the
             same draws (held in float32);
+  samplers  (after eval) the other samplers on the flagship at full width
+            (B=64 objects, K=50, 3,200 rows; draws from generators of the
+            phase's own), each through sample_candidates on a batch whose ViT
+            layers are attached, so that one encoder forward launches inside
+            it (exactly FPS 1, ball count 1, SA 4, rel-PE 4, residual LN 8,
+            RK4 0 a call): rk45 (the default, atol/rtol 1e-5, T0 0.55) with
+            its nsteps, host ms, the card's busy ms and its host reads of
+            done, in float32 also against the fused RK4 kernel at 500 steps
+            from the same prior (within 0.1, scripts/rk45_vs_fixed.py);
+            euler and pc at 500 steps, the energy agent's rk45 (score = the
+            energy's gradient) and the EDM decoder's 18 Heun steps; each
+            against the plain versions with the same draws, in bf16
+            (recorded; the encoders' features held to the request bounds) and
+            float32 (held to 5e-4 plus the sampler's own spread); rotations
+            orthonormal to 1e-5; the likelihood of the bf16 rk45 candidates
+            (finite, within 2e-2 of max |bits| of the plain versions'). The
+            reference phase also runs rk45, pc and edm at tiny_test_config,
+            card against CPU, plain versions on both;
   timing    CUDA-event times of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the main
             paths' shapes, with the bound from this run's shapes and data; the
@@ -347,8 +365,8 @@ def main():
     from genpose2_tpu_torch.ops.vit_attention import (vit_attention, vit_attention_plain,
                                                       vit_attention_tm, vit_attention_tm_plain)
     from genpose2_tpu_torch.so3.noise import truncated_normal
-    from genpose2_tpu_torch.so3.rotations import matrix_to_rot6d_cols
-    from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent
+    from genpose2_tpu_torch.so3.rotations import matrix_to_rot6d_cols, rot6d_cols_to_matrix
+    from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent, calc_likelihood
     from genpose2_tpu_torch.training.optim import global_norm
 
     # module initialisation draws from torch's global generators, which are
@@ -461,6 +479,51 @@ def main():
             emit(dict(line, config=name))
             for k in tol:
                 assert errs[k] <= tol[k], f"{name} {k}: {errs[k]} > {tol[k]}"
+        errs, tol = sampler_errors(torch.Generator().manual_seed(SEED + 17))
+        emit(dict(line, config="tiny_test_config samplers",
+                  samplers={"max_abs_err": errs, "tolerance": tol}))
+        for k in tol:
+            assert errs[k] <= tol[k], f"samplers {k}: {errs[k]} > {tol[k]}"
+
+    def sampler_errors(rgen):
+        """rk45, pc (20 steps) and the EDM decoder's Heun sampler (18 steps)
+        at tiny_test_config, card against CPU, plain versions on both, the
+        same weights and draws. rk45's bound: the candidates' 5e-4 plus
+        sqrt(6 n) times the CPU result's spread when its prior moves by 1e-6
+        of itself (n its iterations; tests/test_torch_port_samplers.py:
+        adaptive_bound): float32 noise anywhere moves the adaptive steps."""
+        tiny = tiny_test_config()
+        errs, tol = {}, {}
+        cpu, card = PoseAgent(tiny, "score", device="cpu"), PoseAgent(tiny, "score", device=dev)
+        randomize(cpu.model, rgen)
+        card.model.load_state_dict(cpu.model.state_dict())
+        pts = torch.rand(4, tiny.model.num_points, 3, generator=rgen) * 0.3
+        batch = {"pts": pts, "pts_center": pts.mean(1)}
+        prior = cpu.sde.prior_sample((4 * 8, 9), T=T0, generator=rgen)
+        stats = {}
+
+        def both(agent, b, **kw):
+            return agent.sample_candidates(b, repeat_num=8, plain=True, **kw)
+
+        p_cpu = both(cpu, batch, T0=T0, prior=prior, stats=stats)
+        spread = max(max_err(both(cpu, batch, T0=T0, prior=prior * (1 + d)), p_cpu)
+                     for d in (1e-6, -1e-6))
+        errs["rk45"] = max_err(both(card, to_card(batch), T0=T0, prior=prior).cpu(), p_cpu)
+        tol["rk45"] = 5e-4 + (6 * len(stats["err_norm"])) ** 0.5 * spread
+        start = cpu.sde.prior_sample((4 * 8, 9), generator=rgen)
+        noise = torch.randn(20, 2, 4 * 8, 9, generator=rgen)
+        kw = dict(method="pc", num_steps=20, prior=start, noise=noise)
+        errs["pc"] = max_err(both(card, to_card(batch), **kw).cpu(), both(cpu, batch, **kw))
+        dcfg = tiny.replace(sde=dataclasses.replace(tiny.sde, mode="edm"))
+        d_cpu, d_card = PoseAgent(dcfg, "score", device="cpu"), PoseAgent(dcfg, "score", device=dev)
+        randomize(d_cpu.model, rgen)
+        d_card.model.load_state_dict(d_cpu.model.state_dict())
+        kw = dict(method="edm", num_steps=18, prior=torch.randn(4 * 8, 9, generator=rgen))
+        errs["edm"] = max_err(both(d_card, to_card(batch), **kw).cpu(), both(d_cpu, batch, **kw))
+        # pc and edm: the fixed grid's bound (the JAX package's fused RK4 against
+        # its scan, tests/test_ode_fused.py:112)
+        tol["pc"] = tol["edm"] = 5e-4
+        return errs, tol
 
     def serving_errors(tiny, rgen):
         """A tiny config's score agent, card against CPU: the backbone's
@@ -499,10 +562,10 @@ def main():
         f_cpu, r_cpu = cpu.extract_features(batch)
         f_card, r_card = card.extract_features(on_card)
         feats = (f_cpu.to(dev), None if r_cpu is None else r_cpu.to(dev))
-        p_cpu = cpu.sample_candidates(batch, repeat_num=8, T0=T0, num_steps=10,
+        p_cpu = cpu.sample_candidates(batch, repeat_num=8, T0=T0, method="fixed", num_steps=10,
                                       features=(f_cpu, r_cpu), prior=prior)
-        p_card = card.sample_candidates(on_card, repeat_num=8, T0=T0, num_steps=10,
-                                        features=feats, prior=prior)
+        p_card = card.sample_candidates(on_card, repeat_num=8, T0=T0, method="fixed",
+                                        num_steps=10, features=feats, prior=prior)
         errs["feature"] = max_err(f_card.cpu(), f_cpu)
         errs["candidates"] = max_err(p_card.cpu(), p_cpu)
         # the JAX package's float32 bounds: encoder (tests/test_models.py:446),
@@ -1049,7 +1112,7 @@ def main():
         s, e, sc = paths[path][dtype]
         batch = s.with_image_features(raw)
         feats = s.extract_features(batch)
-        poses = s.sample_candidates(batch, repeat_num=K, T0=T0, num_steps=STEPS,
+        poses = s.sample_candidates(batch, repeat_num=K, T0=T0, method="fixed", num_steps=STEPS,
                                     features=feats, prior=prior)
         en = e.get_energy(batch, poses, fixed_t=1e-5)
         ev = s.cfg.eval
@@ -1119,8 +1182,8 @@ def main():
                   tuple(lengths.shape)]
         f_plain, r_plain = s.extract_features(s.with_image_features(raw, plain=True),
                                               plain=True)
-        p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, num_steps=STEPS, plain=True,
-                                      features=feats, prior=prior)
+        p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, method="fixed", num_steps=STEPS,
+                                      plain=True, features=feats, prior=prior)
         f_err = rel_err(feats[0], f_plain)
         if r_plain is not None:  # the global rgb feature: the feature's bound
             f_err = max(f_err, rel_err(feats[1], r_plain))
@@ -1440,7 +1503,8 @@ def main():
                     plain = engine.serve_batch(raw, None, False, prior=prior, energy_t=et,
                                                plain=True)
                     p_plain = engine.score_agent.sample_candidates(
-                        out["batch"], repeat_num=Kf, T0=T0f, num_steps=engine.num_steps,
+                        out["batch"], repeat_num=Kf, T0=T0f, method="fixed",
+                        num_steps=engine.num_steps,
                         features=(out["features"], out["rgb_features"]), prior=prior,
                         plain=True)
                     f_err = rel_err(out["features"], plain["features"])
@@ -1677,7 +1741,8 @@ def main():
             fk = s.extract_features(bk)
             fp = s.extract_features(s.with_image_features(batch, plain=True), plain=True)
             cp = s.sample_candidates(bk, repeat_num=s.cfg.eval.eval_repeat_num,
-                                     T0=s.cfg.eval.T0, num_steps=s.cfg.sampler.sampling_steps,
+                                     T0=s.cfg.eval.T0, method="fixed",
+                                     num_steps=s.cfg.sampler.sampling_steps,
                                      features=fk, prior=priors[i], plain=True)
             f_err = max(f_err, rel_err(fk[0], fp[0]))
             c_err = max(c_err, float(np.abs(cand - cp.cpu().numpy()).max()))
@@ -1906,6 +1971,187 @@ def main():
 
     evaluation()
 
+    # --------------------------------------------------------------- samplers
+    per_samplers = []  # launch counts of the samplers phase's counted rk45 calls
+    SAMPLER_STEPS, HEUN_STEPS = 500, 18
+    # float32 rk45 (tolerance 1e-5) against 500 fixed RK4 steps from the same
+    # prior: scripts/rk45_vs_fixed.py measures up to 0.035 at tiny_test_config
+    # on the CPU (6 seeds); the reference's adaptive solver errs that much at
+    # its own tolerance, so the bound is about three times that
+    RK45_VS_FIXED_TOL = 0.1
+
+    def orthonormal_err(poses):
+        R = rot6d_cols_to_matrix(poses[..., :6].reshape(-1, 6))
+        eye = torch.eye(3, device=R.device).expand_as(R)
+        return float((R.transpose(1, 2) @ R - eye).abs().max())
+
+    def sampler_counts():
+        """Launches of one sample_candidates call on a batch whose ViT layers
+        are attached: one flagship encoder forward, no RK4."""
+        want = dict.fromkeys(_cuda.KERNELS, 0)
+        want.update(fps=1, ball_count=1, fused_sa_stage=4, relpe_attention=4,
+                    residual_layernorm=8)
+        return want
+
+    def sampler_batch(sgen, count):
+        pts = object_clouds(sgen, dev, count)
+        return {"pts": pts, "pts_center": pts.mean(1),
+                "roi_rgb": torch.randn(count, S, S, 3, generator=sgen).to(dev),
+                "roi_xs": torch.randint(0, S, (count, N), generator=sgen).to(dev),
+                "roi_ys": torch.randint(0, S, (count, N), generator=sgen).to(dev)}
+
+    def decoder_agents(sgen):
+        """{dtype: score agent with sde mode 'edm'} (the EDM decoder), one set of
+        random weights shared by the dtypes."""
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = flagship_config(dtype)
+            out[dtype] = PoseAgent(cfg.replace(sde=dataclasses.replace(cfg.sde, mode="edm")),
+                                   "score", device=dev)
+        randomize(out["float32"].model, sgen)
+        out["bfloat16"].model.load_state_dict(out["float32"].model.state_dict())
+        return out
+
+    def sampler_check(name, dtype, run, start, evals, line):
+        """run(start, plain) with the kernels, timed, then with the plain
+        versions (the same draws: run makes its own generator). float32 is
+        held to the candidates' 5e-4 plus sqrt(evals) times the kernel run's
+        spread when its start moves by 1e-6 of itself (evals: the score or
+        denoiser evaluations; tests/test_torch_port_samplers.py:adaptive_bound);
+        bf16 is recorded (its features differ by bf16 roundings, which the
+        samplers carry on). Returns (kernel result, held)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(start, False)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = run(start, True)
+        err, orth = max_err(got, want), orthonormal_err(got)
+        good = (bool(torch.isfinite(got).all()) and orth < 1e-5
+                and tuple(got.shape) == (B, K, 9))
+        entry = {"ms": ms, "max_abs_err_vs_plain": err, "max_abs_plain": float(want.abs().max()),
+                 "orthonormality_err": orth}
+        if dtype == "float32":
+            spread = max(max_err(run(start * (1 + d), False), got) for d in (1e-6, -1e-6))
+            tol = 5e-4 + evals() ** 0.5 * spread
+            good = good and err <= tol
+            entry.update(spread=spread, tolerance=tol)
+        entry["ok"] = good
+        line[f"{name}_{dtype}"] = entry
+        emit(dict(line, ok=good, part=f"{name}_{dtype}"))
+        return got, good
+
+    @phase("samplers")
+    def samplers():
+        """The other samplers on the flagship at full width (B objects, K
+        candidates, draws from generators of the phase's own), each from a
+        batch whose ViT layers are attached, so that the encoder's kernels
+        launch inside sample_candidates: rk45 (T0 0.55) with exact launch
+        counts, the card's busy time and its reads of done, in float32 also
+        against the fused RK4 kernel at 500 steps; euler and pc at 500 steps,
+        the energy agent's rk45 and the EDM decoder's 18 Heun steps; kernels
+        against plain versions for each, in bf16 and float32; the likelihood
+        of the bf16 rk45 candidates."""
+        sgen = torch.Generator().manual_seed(SEED + 15)
+        ok = True
+        line = {"phase": "samplers", "B": B, "K": K, "T0": T0}
+        raw = sampler_batch(sgen, B)
+        prior = paths["pointwise"]["bfloat16"][0].sde.prior_sample(
+            (B * K, 9), T=T0, generator=sgen).to(dev)
+        pc_start = paths["pointwise"]["bfloat16"][0].sde.prior_sample(
+            (B * K, 9), generator=sgen).to(dev)
+        latents = torch.randn(B * K, 9, generator=sgen).to(dev)
+        eps = torch.randn(B * K, 9, generator=sgen).to(dev)
+        decoders = decoder_agents(sgen)
+        want = sampler_counts()
+        for dtype in ("bfloat16", "float32"):
+            s, e, _ = paths["pointwise"][dtype]
+            batch = s.with_image_features(raw)
+            s.sample_candidates(batch, repeat_num=K, T0=T0, prior=prior)  # warm-up
+            stats = {}
+            poses, ms, counts = counted(lambda: s.sample_candidates(
+                batch, repeat_num=K, T0=T0, prior=prior, stats=stats))
+            per_samplers.append({"dtype": dtype, "counts": counts})
+            busy, top = device_busy_ms(lambda: s.sample_candidates(batch, repeat_num=K, T0=T0,
+                                                                   prior=prior))
+            fixed = s.sample_candidates(batch, repeat_num=K, T0=T0, method="fixed",
+                                        num_steps=SAMPLER_STEPS, prior=prior)
+            vs_fixed = max_err(poses, fixed)
+            good = counts == want and (dtype == "bfloat16" or vs_fixed <= RK45_VS_FIXED_TOL)
+            ok = ok and good
+            line[f"rk45_call_{dtype}"] = {
+                "ok": good, "ms": ms, "busy_ms": busy, "top": top,
+                "nsteps": int(stats["nsteps"]), "iterations": len(stats["err_norm"]),
+                "host_reads_of_done": stats["host_reads"], "launches": counts,
+                "expected": want, "max_abs_diff_vs_fused_rk4_500": vs_fixed,
+                "tolerance_vs_fused": RK45_VS_FIXED_TOL if dtype == "float32" else None}
+            emit(dict(line, ok=good, part=f"rk45_call_{dtype}"))
+            # the score and energy encoders' features against plain: the
+            # request phase's flagship bounds (of max |plain|)
+            feats = [a.extract_features(batch, plain=p)[0] for a in (s, e) for p in (False, True)]
+            f_err = [rel_err(feats[0], feats[1]), rel_err(feats[2], feats[3])]
+            f_tol = 2e-4 if dtype == "float32" else 5e-2
+            good = max(f_err) <= f_tol
+            ok = ok and good
+            line[f"features_{dtype}"] = {"ok": good, "err_over_max_vs_plain": f_err,
+                                         "tolerance": f_tol}
+
+            def sampling(agent, **kw):
+                def run(start, plain):
+                    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+                    return agent.sample_candidates(batch, repeat_num=K, prior=start, plain=plain,
+                                                   generator=g, **kw)
+                return run
+
+            def rk45_evals(agent):
+                def evals():
+                    st = {}
+                    agent.sample_candidates(batch, repeat_num=K, T0=T0, prior=prior, stats=st)
+                    return 6 * len(st["err_norm"])
+                return evals
+
+            for name, run, start, evals in (
+                    ("rk45", sampling(s, T0=T0), prior, rk45_evals(s)),
+                    ("euler", sampling(s, T0=T0, method="euler", num_steps=SAMPLER_STEPS), prior,
+                     lambda: SAMPLER_STEPS),
+                    ("pc", sampling(s, method="pc", num_steps=SAMPLER_STEPS), pc_start,
+                     lambda: SAMPLER_STEPS),
+                    ("energy_rk45", sampling(e, T0=T0), prior, rk45_evals(e)),
+                    ("edm", sampling(decoders[dtype], method="edm", num_steps=HEUN_STEPS),
+                     latents, lambda: 2 * HEUN_STEPS - 1)):
+                got, good = sampler_check(name, dtype, run, start, evals, line)
+                ok = ok and good
+                if name == "rk45" and dtype == "bfloat16":
+                    poses_bf16 = got
+
+        # the likelihood of the bf16 rk45 candidates, kernels and plain
+        s = paths["pointwise"]["bfloat16"][0]
+        batch = s.with_image_features(raw)
+        lstats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ll = calc_likelihood(s, batch, poses_bf16, epsilon=eps, stats=lstats)
+        torch.cuda.synchronize()
+        lms = 1e3 * (time.perf_counter() - t0)
+        ll_plain = calc_likelihood(s, batch, poses_bf16, epsilon=eps, plain=True)
+        lerr = rel_err(ll, ll_plain)
+        # bits over max |bits|: the bf16 features' rounding (up to ~7e-3 of max,
+        # the request phase) carried through the integration; the relative
+        # size of the bf16 candidates' bound
+        good = bool(torch.isfinite(ll).all()) and tuple(ll.shape) == (B, K) and lerr <= 2e-2
+        ok = ok and good
+        line["likelihood_bfloat16"] = {
+            "ok": good, "ms": lms, "nsteps": int(lstats["nsteps"]),
+            "iterations": len(lstats["err_norm"]), "host_reads_of_done": lstats["host_reads"],
+            "err_over_max_vs_plain": lerr, "tolerance": 2e-2,
+            "bits_min_max": [float(ll.min()), float(ll.max())]}
+        emit(dict(line, ok=good, part="likelihood_bfloat16"))
+        del decoders
+        if not ok:
+            raise AssertionError("a sampler check failed")
+
+    samplers()
+
     # ------------------------------------------------------------------ timing
     table = []
 
@@ -1916,12 +2162,14 @@ def main():
                   "fused_sa_scale", "fused_group_mlp_pool", "layernorm", "vit_attention_unpadded",
                   "vit_attention_rope")
         launches = {}
-        for req in per_request + per_frame + per_eval:
+        for req in per_request + per_frame + per_eval + per_samplers:
             for k, v in req["counts"].items():
                 key = f"{k}.bf16" if req["dtype"] == "bfloat16" and k in dtyped else k
                 launches[key] = launches.get(key, 0) + v
         eval_launches = {(f"{k}.bf16" if k in dtyped else k): v
                          for k, v in eval_batch_counts.items()}
+        rk45_launches = {(f"{k}.bf16" if k in dtyped else k): v
+                         for k, v in (per_samplers[0]["counts"] if per_samplers else {}).items()}
         for counts in per_train:  # the training backbone is bf16 in both settings
             for k, v in counts.items():
                 key = f"{k}.bf16" if k == "vit_attention" else k
@@ -1933,6 +2181,7 @@ def main():
             table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                           "launches": launches.get(name, 0),
                           "eval_launches_per_batch": eval_launches.get(name, 0),
+                          "rk45_launches_per_call": rk45_launches.get(name, 0),
                           "max_abs_err": r.get("max_abs_err"),
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                           "library_ms": library_ms, **extra})
@@ -2323,8 +2572,9 @@ def main():
                       "32,768 points; ball_count, ball_query: 32,768; the ViT attention "
                       "entries: 1,029 and 1,605 tokens, library SDPA without RoPE), a frame "
                       "call's 12 objects; ball_query: the eight launches of one training step; "
-                      "launches: summed over the requests, the frame calls and the counted "
-                      "train steps"})
+                      "launches: summed over the requests, the frame calls, the counted "
+                      "train steps and the samplers phase's two counted rk45 calls; "
+                      "rk45_launches_per_call: one bf16 rk45 sample_candidates call"})
 
     timing()
 

@@ -151,8 +151,9 @@ class GenPose2:
         batch = s.with_image_features(batch, plain)
         feats = s.extract_features(batch, plain)
         poses = s.sample_candidates(batch, repeat_num=self.cfg.eval.eval_repeat_num, T0=T0,
-                                    init_x=init_x, num_steps=self.num_steps, features=feats,
-                                    generator=generator, prior=prior, plain=plain)
+                                    init_x=init_x, method="fixed", num_steps=self.num_steps,
+                                    features=feats, generator=generator, prior=prior,
+                                    plain=plain)
         energy = None
         if self.energy_agent is not None:
             energy = self.energy_agent.get_energy(batch, poses, fixed_t=None,

@@ -56,17 +56,15 @@ class SingleFrameEvaluator:
     Without an energy agent the candidates aggregate with equal energies;
     without ``scale_fn(batch, R, t, pts_feat=None)`` the box sizes are the
     rotated cloud's extent. ``score_state`` / ``energy_state``: train states
-    whose EMA weights the agents run, as in ``PoseTracker``. Only the fixed
-    grid sampler is ported: ``cfg.sampler.mode`` 'ode' runs it, with
-    ``cfg.sampler.sampling_steps`` RK4 steps."""
+    whose EMA weights the agents run, as in ``PoseTracker``.
+    ``cfg.sampler.mode`` picks the sampler as the JAX evaluator does: 'ode'
+    runs the fixed-grid RK4 sampler, every other mode ('rk45', 'euler',
+    'pc', 'edm') goes to ``sample_candidates`` as its method, with
+    ``cfg.sampler.sampling_steps`` steps."""
 
     def __init__(self, cfg: Config, score_agent, energy_agent=None,
                  scale_fn: Optional[Callable] = None, out_dir: Optional[str] = None, *,
                  score_state=None, energy_state=None):
-        if cfg.sampler.mode != "ode":
-            raise NotImplementedError(f"sampler mode {cfg.sampler.mode!r} is not ported yet "
-                                      "(see ROADMAP.md); the evaluator runs mode 'ode' as "
-                                      "the fixed-grid sampler")
         self.cfg = cfg
         self.score_agent = score_agent
         self.score_state = score_state
@@ -77,13 +75,18 @@ class SingleFrameEvaluator:
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
 
+    @property
+    def method(self) -> str:
+        mode = self.cfg.sampler.mode
+        return "fixed" if mode == "ode" else mode
+
     def _path(self, name):
         return os.path.join(self.out_dir, name) if self.out_dir else None
 
     def _sample(self, batch, generator, prior, features=None, plain=False):
         ev = self.cfg.eval
         return self.score_agent.sample_candidates(
-            batch, repeat_num=ev.eval_repeat_num, T0=ev.T0, method="fixed",
+            batch, repeat_num=ev.eval_repeat_num, T0=ev.T0, method=self.method,
             num_steps=self.cfg.sampler.sampling_steps, features=features, generator=generator,
             prior=prior, plain=plain, state=self.score_state)
 

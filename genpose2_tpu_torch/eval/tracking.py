@@ -69,8 +69,9 @@ class PoseTracker:
         batch = s.with_image_features(batch)
         feats = s.extract_features(batch, state=self.score_state)
         poses = s.sample_candidates(batch, repeat_num=self.cfg.eval.eval_repeat_num, T0=self.T0,
-                                    init_x=init_x, num_steps=self.num_steps, features=feats,
-                                    generator=generator, prior=prior, state=self.score_state)
+                                    init_x=init_x, method="fixed", num_steps=self.num_steps,
+                                    features=feats, generator=generator, prior=prior,
+                                    state=self.score_state)
         energy = None
         if self.energy_agent is not None:
             energy = self.energy_agent.get_energy(batch, poses, fixed_t=1e-5,

@@ -1,6 +1,7 @@
 """Pose energy network (port of genpose2_tpu/models/energynet.py): the score
-net's trunk with the head output turned into an energy. Serving needs only
-the energy itself; the energy-gradient score is training work (ROADMAP.md)."""
+net's trunk with the head output turned into an energy. Its gradient with
+respect to the pose is the energy agent's score, for training
+(``GFObjectPose.energy_score``) and for sampling (``PoseAgent.score_fn``)."""
 
 from __future__ import annotations
 

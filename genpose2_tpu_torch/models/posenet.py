@@ -9,7 +9,8 @@ concatenated with ``encode_axes(roi_center_dir)``, ``dino_dim +
 global_embedding_dim`` wide.
 
 State dict layout (reference): ``pts_encoder.*`` and ``pose_score_net.*``
-(for both agent types), plus ``img_encoder.*`` with ``dino='pointwise'`` (a
+(for both agent types and the score agent's EDM decoder), plus
+``img_encoder.*`` with ``dino='pointwise'`` (a
 global model holds none: the JAX package creates its parameters only where
 the module runs). The frozen backbone is not part of it: the agent owns it
 (models/provider.py).
@@ -27,12 +28,16 @@ from genpose2_tpu_torch.models.energynet import PoseEnergyNet
 from genpose2_tpu_torch.models.fast_encoder import fast_cls_forward, fast_fus_forward
 from genpose2_tpu_torch.models.img_encoder import ImgEncoder
 from genpose2_tpu_torch.models.pointnet2 import PointNet2ClsMSG, PointNet2ClsMSGFus
-from genpose2_tpu_torch.models.scorenet import PoseScoreNet
+from genpose2_tpu_torch.models.scorenet import PoseDecoderNet, PoseScoreNet
 from genpose2_tpu_torch.so3.rotations import encode_axes
 
 
 class GFObjectPose(nn.Module):
-    def __init__(self, cfg: ModelConfig, marginal_std_fn: Callable, agent_type: str = "score"):
+    """``use_decoder`` (a score agent whose sde mode is 'edm'): the pose net is
+    the EDM denoiser ``PoseDecoderNet`` in place of the score net."""
+
+    def __init__(self, cfg: ModelConfig, marginal_std_fn: Callable, agent_type: str = "score",
+                 use_decoder: bool = False):
         super().__init__()
         if cfg.dino not in ("none", "pointwise", "global") or cfg.pts_encoder != "pointnet2":
             raise NotImplementedError(
@@ -40,6 +45,7 @@ class GFObjectPose(nn.Module):
                 "pts_encoder='pointnet2' so far (see ROADMAP.md)")
         self.cfg = cfg
         self.agent_type = agent_type
+        self.use_decoder = use_decoder
         if cfg.dino == "pointwise":
             grid = cfg.img_size // cfg.patch_size
             dt = torch.bfloat16 if cfg.pointnet2.compute_dtype == "bfloat16" else None
@@ -49,7 +55,9 @@ class GFObjectPose(nn.Module):
             self.pts_encoder = PointNet2ClsMSG(cfg.pointnet2)
         rgb_dim = cfg.dino_dim + cfg.global_embedding_dim if cfg.dino == "global" else 0
         args = (marginal_std_fn, cfg.pose_dim, cfg.regression_head, self.pts_encoder.out_channels)
-        if agent_type == "score":
+        if agent_type == "score" and use_decoder:
+            self.pose_score_net = PoseDecoderNet(*args)
+        elif agent_type == "score":
             self.pose_score_net = PoseScoreNet(*args, rgb_dim=rgb_dim)
         elif agent_type == "energy":
             self.pose_score_net = PoseEnergyNet(*args, cfg.energy_mode, cfg.s_theta_mode,
@@ -108,8 +116,14 @@ class GFObjectPose(nn.Module):
         return torch.cat([dino_global.float(), emb], dim=-1)
 
     def score(self, pts_feat, sampled_pose, t, rgb_feat=None):
-        assert self.agent_type == "score"
+        assert self.agent_type == "score" and not self.use_decoder
         return self.pose_score_net(pts_feat, sampled_pose, t, rgb_feat)
+
+    def denoise(self, pts_feat, sampled_pose, sigma, rgb_feat=None):
+        """The EDM denoiser D(x; sigma) (sde mode 'edm', where t and sigma are
+        one)."""
+        assert self.agent_type == "score" and self.use_decoder
+        return self.pose_score_net(pts_feat, sampled_pose, sigma, rgb_feat)
 
     def energy(self, pts_feat, sampled_pose, t, decoupled_rt: bool = True, rgb_feat=None):
         assert self.agent_type == "energy"

@@ -7,6 +7,10 @@ State dict layout (reference): ``t_encoder.0.W`` (Fourier weights),
 or ``fusion_tail`` (``RT``), each ``.{0,2}``. All output layers start at zero.
 With dino='global' the heads' first layers take ``rgb_dim`` more inputs, the
 global rgb feature, after [pts, t, pose] (the JAX package's concat order).
+
+``PoseDecoderNet`` (the score agent's net with sde mode 'edm') keeps the
+score net's entry names: its noise embedding's Linear is ``t_encoder.1``,
+the pose encoder and the heads as above.
 """
 
 from __future__ import annotations
@@ -62,6 +66,45 @@ class PoseScoreNet(_PoseTrunk):
         rgb_dim) with dino='global') -> score (B, D)."""
         out = self.raw_heads(pts_feat, sampled_pose, t, rgb_feat)
         return out / (self.marginal_std_fn(t) + 1e-7)
+
+
+class NoiseEmbedding(nn.Module):
+    """Fixed embedding [cos(c f), sin(c f)] of a noise level c (B,), with
+    frequencies f_i = (1 / 10000) ** (i / half), i < half."""
+
+    def __init__(self, num_channels: int = 128):
+        super().__init__()
+        half = num_channels // 2
+        freqs = (1.0 / 10000.0) ** (torch.arange(half, dtype=torch.float32) / half)
+        self.register_buffer("freqs", freqs, persistent=False)
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        emb = c.reshape(-1, 1) * self.freqs[None, :]
+        return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+
+
+class PoseDecoderNet(_PoseTrunk):
+    """The EDM-preconditioned denoiser (port of
+    genpose2_tpu/models/scorenet.py:PoseDecoderNet), VE preconditioning:
+    c_skip 1, c_out sigma, c_in 1, c_noise log(sigma / 2). The noise level's
+    128-channel cos/sin embedding goes through a Linear and a ReLU in place
+    of the score net's t encoder; the heads take [pts, noise, pose]. Heads
+    'RT' and 'Rx_Ry_and_T' only, as in the JAX package."""
+
+    def __init__(self, marginal_std_fn: Callable, pose_dim: int = 9,
+                 regression_head: str = "Rx_Ry_and_T", pts_dim: int = 1024):
+        if regression_head not in ("RT", "Rx_Ry_and_T"):
+            raise NotImplementedError(regression_head)
+        super().__init__(marginal_std_fn, pose_dim, regression_head, pts_dim)
+        self.t_encoder = nn.Sequential(NoiseEmbedding(128), nn.Linear(128, 128), nn.ReLU())
+
+    def forward(self, pts_feat, sampled_pose, sigma, rgb_feat=None):
+        """pts_feat (B, F), sampled_pose (B, D), sigma (B, 1) -> the denoised
+        pose D(x; sigma) (B, D). ``rgb_feat`` is taken and not used, as in
+        the JAX package."""
+        sigma_t = self.marginal_std_fn(sigma)
+        out = self.raw_heads(pts_feat, sampled_pose, torch.log(sigma_t / 2.0))
+        return sampled_pose + sigma_t * out
 
 
 def fast_score_weights(net: _PoseTrunk, pts_feat: torch.Tensor,

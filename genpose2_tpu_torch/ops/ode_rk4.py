@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -35,8 +35,9 @@ def pf_ode_rhs(score_fn: Callable, sde, t: torch.Tensor, x: torch.Tensor) -> tor
 
 
 def rk4_fixed_grid(rhs: Callable, x0: torch.Tensor, T0: float, eps: float,
-                   num_steps: int) -> torch.Tensor:
-    """Classic RK4 on ``num_steps`` equal steps from T0 down to eps."""
+                   num_steps: int, trajectory: Optional[list] = None) -> torch.Tensor:
+    """Classic RK4 on ``num_steps`` equal steps from T0 down to eps; each
+    step's x is appended to ``trajectory`` when one is given."""
     ts = torch.linspace(T0, eps, num_steps + 1, dtype=torch.float32, device=x0.device)
     x = x0
     for i in range(num_steps):
@@ -47,29 +48,39 @@ def rk4_fixed_grid(rhs: Callable, x0: torch.Tensor, T0: float, eps: float,
         k3 = rhs(t + h / 2, x + h / 2 * k2)
         k4 = rhs(t_next, x + h * k3)
         x = x + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        if trajectory is not None:
+            trajectory.append(x)
     return x
 
 
 def fast_score(w: dict, x: torch.Tensor, t: torch.Tensor, marginal_std_fn: Callable,
-               compute_dtype: str = "float32") -> torch.Tensor:
+               compute_dtype: str = "float32", uniform_t: bool = False) -> torch.Tensor:
     """The score of ``fast_score_weights``' folded net at (x (R, D), t (R, 1)).
 
     Products take their operands in the compute dtype and sum in float32; the
     t embedding, biases, activations and 1/std stay float32
-    (genpose2_tpu/models/scorenet.py:make_fast_score_fn, uniform_t=False)."""
+    (genpose2_tpu/models/scorenet.py:make_fast_score_fn). ``uniform_t``: every
+    row has t[0]'s time, so the t embedding and its first-layer rows are
+    computed on that one row (float32) and broadcast."""
     dt = compute_dtype_of(compute_dtype)
 
     def mm(a, W):
         return a.to(dt).float() @ W.to(dt).float()
 
-    proj = t[:, 0:1] * w["fourier_W"][None, :] * 2.0 * math.pi
-    t_feat = torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
-    t_emb = torch.relu(t_feat @ w["t_dense"]["kernel"] + w["t_dense"]["bias"])
+    def t_embed(tt):
+        proj = tt[:, 0:1] * w["fourier_W"][None, :] * 2.0 * math.pi
+        t_feat = torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+        return torch.relu(t_feat @ w["t_dense"]["kernel"] + w["t_dense"]["bias"])
+
     h = x
     for layer in ("Dense_0", "Dense_1"):
         p = w["pose_mlp"][layer]
         h = torch.relu(mm(h, p["kernel"]) + p["bias"])
-    hidden = torch.relu(mm(torch.cat([t_emb, h], dim=-1), w["W1_dyn"]) + w["static"])
+    if uniform_t:
+        t_rows = t_embed(t[:1]) @ w["W1_t"].float()
+        hidden = torch.relu(mm(h, w["W1_pose"]) + (w["static"] + t_rows))
+    else:
+        hidden = torch.relu(mm(torch.cat([t_embed(t), h], dim=-1), w["W1_dyn"]) + w["static"])
     return (mm(hidden, w["W2bd"]) + w["b2cat"]) / (marginal_std_fn(t) + 1e-7)
 
 

@@ -1,7 +1,8 @@
 """The agents (port of genpose2_tpu/training/agent.py): the inference surface
 (PoseAgent.with_image_features / extract_features / sample_candidates /
-get_energy, ScaleAgent.predict) and training (``init_state``,
-``train_step`` / ``train_steps``).
+get_energy / score_fn / denoiser_fn, ``calc_likelihood``,
+ScaleAgent.predict) and training (``init_state``, ``train_step`` /
+``train_steps``).
 
 A training step follows the JAX package's ``train_step``: the frozen
 backbone's features without gradients, the encoder's module forward in train
@@ -25,6 +26,7 @@ without a device the agents raise.
 from __future__ import annotations
 
 import contextlib
+import copy
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -32,7 +34,8 @@ import torch
 
 from genpose2_tpu_torch.config import Config
 from genpose2_tpu_torch.device import resolve_device
-from genpose2_tpu_torch.diffusion import init_sde, ode_sampler
+from genpose2_tpu_torch.diffusion import (edm_sampler, init_sde, ode_likelihood, ode_sampler,
+                                          pc_sampler)
 from genpose2_tpu_torch.diffusion.losses import dsm_draws, dsm_loss
 from genpose2_tpu_torch.models.layers import batch_stats, update_running_stats
 from genpose2_tpu_torch.models.posenet import GFObjectPose
@@ -121,7 +124,8 @@ class _Trainable:
 
 class PoseAgent(_Trainable):
     """A score or energy GFObjectPose on one device; in eval mode except
-    inside a training step."""
+    inside a training step. A score agent whose sde mode is 'edm' runs the
+    EDM denoiser (``use_decoder``)."""
 
     def __init__(self, cfg: Config, agent_type: Optional[str] = None, device=None,
                  steps_per_epoch: int = 1000):
@@ -129,7 +133,9 @@ class PoseAgent(_Trainable):
         self.agent_type = agent_type or cfg.train.agent_type
         self.device = resolve_device(device)
         self.sde = init_sde(cfg.sde)
-        self.model = GFObjectPose(cfg.model, self.sde.marginal_std, self.agent_type)
+        self.use_decoder = self.agent_type == "score" and cfg.sde.mode == "edm"
+        self.model = GFObjectPose(cfg.model, self.sde.marginal_std, self.agent_type,
+                                  use_decoder=self.use_decoder)
         self.model.to(self.device).eval()
         # the frozen image backbone belongs to the agent, not to the model
         self.provider = None
@@ -172,6 +178,10 @@ class PoseAgent(_Trainable):
         if self.cfg.model.dino == "global":
             raise NotImplementedError("training with dino='global' is not ported yet "
                                       "(see ROADMAP.md)")
+        if self.use_decoder:
+            raise NotImplementedError("training the EDM decoder (sde mode 'edm') needs "
+                                      "edm_loss, not ported yet (ROADMAP.md queue 1, the "
+                                      "rest of training)")
         dev = self.device
         draws = draws or {}
         batch = self.with_image_features(batch, plain)
@@ -274,52 +284,136 @@ class PoseAgent(_Trainable):
                     batch["dino_global"].to(self.device), batch["roi_center_dir"].to(self.device))
             return self._features(batch, plain=plain), rgb_feat
 
+    def _pose_net(self, state: Optional[TrainState], use_ema: bool):
+        """The pose net, or with a state whose EMA weights are asked for a
+        copy of it holding them (a closure may outlive ``weights``)."""
+        if state is None or not use_ema:
+            return self.model.pose_score_net
+        with self.weights(state, use_ema):
+            return copy.deepcopy(self.model.pose_score_net)
+
+    def denoiser_fn(self, pts_feat: torch.Tensor, rgb_feat: Optional[torch.Tensor] = None,
+                    state: Optional[TrainState] = None, use_ema: bool = True):
+        """(x (R, D), sigma (R, 1)) -> the denoised x, the EDM decoder's
+        D(x; sigma) over the features (R, F) (decoder agents only)."""
+        assert self.use_decoder
+        net = self._pose_net(state, use_ema)
+
+        def fn(x, sigma):
+            return net(pts_feat, x, sigma, rgb_feat)
+
+        return fn
+
+    def score_fn(self, pts_feat: torch.Tensor, rgb_feat: Optional[torch.Tensor] = None,
+                 state: Optional[TrainState] = None, use_ema: bool = True):
+        """(x (R, D), t (R, 1)) -> the score over the features (R, F) (and
+        rgb_feat (R, rgb_dim) with dino='global'), for the samplers:
+        - a decoder agent: (D(x; sigma) - x) / (sigma^2 + 1e-12), sigma the
+          marginal std at t;
+        - a score agent: ``fast_score`` over the folded net (cfg.model.
+          score_dtype products, one t embedding per row);
+        - an energy agent: the gradient of the summed coupled energy with
+          respect to x, by ``torch.func.grad`` (so that ``torch.func.jvp``
+          composes with it, and it runs under ``torch.no_grad``)."""
+        net = self._pose_net(state, use_ema)
+        if self.use_decoder:
+            dfn = self.denoiser_fn(pts_feat, rgb_feat, state, use_ema)
+            std = self.sde.marginal_std
+
+            def decoder_score(x, t):
+                sigma = std(t)
+                return (dfn(x, sigma) - x) / (sigma * sigma + 1e-12)
+
+            return decoder_score
+        if self.agent_type == "score":
+            return self._fast_score(fast_score_weights(net, pts_feat, rgb_feat))
+
+        def energy_score(x, t):
+            return torch.func.grad(
+                lambda p: net(pts_feat, p, t, False, rgb_feat).sum())(x)
+
+        return energy_score
+
+    def _fast_score(self, w: dict):
+        dtype, std = self.cfg.model.score_dtype, self.sde.marginal_std
+
+        def score(x, t):
+            return fast_score(w, x, t, std, dtype)
+
+        return score
+
     @torch.no_grad()
     def sample_candidates(self, batch: dict, repeat_num: int = 50, T0: float = 1.0,
-                          init_x: Optional[torch.Tensor] = None, method: str = "fixed",
+                          init_x: Optional[torch.Tensor] = None, method: str = "rk45",
                           num_steps: int = 500, features=None,
                           generator: Optional[torch.Generator] = None,
                           prior: Optional[torch.Tensor] = None,
+                          noise: Optional[torch.Tensor] = None,
                           plain: bool = False, state: Optional[TrainState] = None,
-                          use_ema: bool = True) -> torch.Tensor:
+                          use_ema: bool = True, stats: Optional[dict] = None) -> torch.Tensor:
         """``repeat_num`` pose candidates per object, (B, K, D), camera frame.
 
-        ``features`` (pts_feat, rgb_feat) from ``extract_features`` skips the
-        encoder. ``prior`` (B * K, D) is the start noise; when None it is
-        drawn with ``generator``. ``init_x`` (B, D) or (B, K, D), zero-mean,
-        warm-starts the integration (tracking): the prior is added to it.
-        With cfg.sampler.fused_fixed the integration is one fused RK4 launch,
-        otherwise (or with ``plain``) the per-step loop. ``state`` and
-        ``use_ema`` pick the weights of the encoder and the score net (see
-        ``weights``)."""
-        assert self.agent_type == "score"
+        ``method``: 'rk45' (the adaptive ODE solver, cfg.sampler's atol, rtol
+        and max_rk45_steps), 'fixed' (``num_steps`` RK4 steps; with
+        cfg.sampler.fused_fixed and a score agent one fused kernel launch,
+        otherwise or with ``plain`` the per-step loop), 'euler', 'pc'
+        (predictor-corrector from t = 1, ``T0`` plays no part; snr
+        cfg.sampler.snr) or 'edm' (the Heun sampler, decoder agents only,
+        no warm start). ``features`` (pts_feat, rgb_feat) from
+        ``extract_features`` skips the encoder. ``prior`` (B * K, D) is the
+        start noise (for 'edm' the N(0, 1) latents), ``noise`` the per-step
+        draws of 'pc' (num_steps, 2, B * K, D) and 'edm' (num_steps, B * K,
+        D); when None they are drawn with ``generator``. ``init_x`` (B, D) or
+        (B, K, D), zero-mean, warm-starts the integration (tracking): the
+        prior is added to it ('pc' starts from it). ``state`` and ``use_ema``
+        pick the weights of the encoder and the pose net (see ``weights``);
+        ``stats`` receives the adaptive solver's host reads and error norms
+        (``rk45_integrate``)."""
+        if method == "edm":
+            assert self.use_decoder, "method 'edm' needs a decoder agent (sde mode 'edm')"
+            # edm starts from fresh latents at sigma_max: a warm start would be dropped
+            if init_x is not None or T0 != 1.0:
+                raise ValueError("method='edm' does not support warm starts: init_x must be "
+                                 "None and T0 must be 1.0 (use method='rk45' for tracking-style "
+                                 "warm-started sampling)")
         with self.weights(state, use_ema):
             pts_feat, rgb_feat = (features if features is not None
                                   else self.extract_features(batch, plain))
             B, K, D = pts_feat.shape[0], repeat_num, self.cfg.model.pose_dim
             feat_rep = pts_feat.repeat_interleave(K, dim=0)
             rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, dim=0)
-            net = self.model.pose_score_net
-            dtype = self.cfg.model.score_dtype
             center = batch.get("pts_center")
             center_rep = None if center is None else center.to(self.device).repeat_interleave(K, 0)
             if init_x is not None:
                 init_x = init_x.to(self.device)
                 init_x = (init_x.repeat_interleave(K, 0) if init_x.ndim == 2
                           else init_x.reshape(B * K, D))
-            w = fast_score_weights(net, feat_rep, rgb_rep)
-
-            def score(x, t):
-                return fast_score(w, x, t, net.marginal_std_fn, dtype)
-
+            prior = None if prior is None else prior.to(self.device)
+            common = dict(generator=generator, device=self.device,
+                          pose_mode=self.cfg.model.pose_mode, pts_center=center_rep)
+            if method == "edm":
+                sde = self.cfg.sde
+                poses = edm_sampler(self.denoiser_fn(feat_rep, rgb_rep), B * K, D,
+                                    num_steps=num_steps, sigma_min=sde.edm_sigma_min,
+                                    sigma_max=sde.edm_sigma_max, latents=prior, noise=noise,
+                                    **common)
+                return poses.reshape(B, K, D)
+            fast = self.agent_type == "score" and not self.use_decoder
+            w = fast_score_weights(self.model.pose_score_net, feat_rep, rgb_rep) if fast else None
+            sfn = self._fast_score(w) if fast else self.score_fn(feat_rep, rgb_rep)
+            if method == "pc":
+                poses = pc_sampler(sfn, self.sde, B * K, D, num_steps=num_steps,
+                                   snr=self.cfg.sampler.snr, init_x=init_x, prior=prior,
+                                   noise=noise, **common)
+                return poses.reshape(B, K, D)
+            # 'fixed': the whole integration as one kernel launch over the folded net
             fused = w if method == "fixed" and self.cfg.sampler.fused_fixed and not plain else None
+            sc = self.cfg.sampler
             poses, _ = ode_sampler(
-                score, self.sde, B * K, D,
-                T0=T0, init_x=init_x, num_steps=num_steps, pose_mode=self.cfg.model.pose_mode,
-                pts_center=center_rep, method=method, fused_weights=fused, compute_dtype=dtype,
-                prior=None if prior is None else prior.to(self.device), generator=generator,
-                device=self.device,
-            )
+                sfn, self.sde, B * K, D, T0=T0, init_x=init_x, num_steps=num_steps,
+                method=method, atol=sc.atol, rtol=sc.rtol, max_steps=sc.max_rk45_steps,
+                fused_weights=fused, compute_dtype=self.cfg.model.score_dtype, prior=prior,
+                stats=stats, **common)
             return poses.reshape(B, K, D)
 
     @torch.no_grad()
@@ -353,6 +447,34 @@ class PoseAgent(_Trainable):
             rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, 0)
             energy = self.model.energy(pts_feat.repeat_interleave(K, 0), flat, t, True, rgb_rep)
             return energy.reshape(B, K, 2)
+
+
+@torch.no_grad()
+def calc_likelihood(agent: PoseAgent, batch: dict, poses: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    epsilon: Optional[torch.Tensor] = None,
+                    state: Optional[TrainState] = None, plain: bool = False,
+                    stats: Optional[dict] = None) -> torch.Tensor:
+    """The log-likelihood in bits (B, K) of camera-frame poses (B, K, D)
+    under the agent's probability-flow ODE (``ode_likelihood``; the cloud
+    center subtracted first). ``epsilon`` (B * K, D) is the divergence
+    estimate's N(0, 1) direction, drawn with ``generator`` when None;
+    ``state`` picks EMA weights, ``plain`` the encoder kernels' plain
+    versions; ``stats`` goes to ``rk45_integrate``."""
+    with agent.weights(state):
+        pts_feat, rgb_feat = agent.extract_features(batch, plain)
+        B, K, D = poses.shape
+        poses = poses.to(agent.device, torch.float32).clone()
+        center = batch.get("pts_center")
+        if center is not None:
+            poses[..., -3:] -= center.to(agent.device)[:, None, :]
+        rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, 0)
+        sfn = agent.score_fn(pts_feat.repeat_interleave(K, 0), rgb_rep)
+        sc = agent.cfg.sampler
+        _, ll = ode_likelihood(sfn, agent.sde, poses.reshape(B * K, D), epsilon=epsilon,
+                               generator=generator, atol=sc.atol, rtol=sc.rtol,
+                               max_steps=sc.max_rk45_steps, stats=stats)
+        return ll.reshape(B, K)
 
 
 class ScaleAgent(_Trainable):

@@ -147,11 +147,26 @@ def _pose_head(d: StateDict, params, constants, regression_head: str, prefix: st
         d.mlp(params[jax_name], f"{prefix}{torch_name}")
 
 
-def posenet_state_dict(variables: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def _decoder_head(d: StateDict, params, regression_head: str, prefix: str) -> None:
+    """PoseDecoderNet: its noise embedding's Dense_0 as the score net's t
+    encoder Linear, MLP_0 the pose encoder, the unnamed head MLPs in creation
+    order. No reference ``.pth`` of a decoder is in the repository, so these
+    names mirror the score net's and are checked against nothing else."""
+    d.linear(params["Dense_0"], f"{prefix}t_encoder.1")
+    d.mlp(params["MLP_0"], f"{prefix}pose_encoder")
+    heads = {"RT": ("fusion_tail",),
+             "Rx_Ry_and_T": ("fusion_tail_rot_x", "fusion_tail_rot_y", "fusion_tail_trans")}
+    for i, torch_name in enumerate(heads[regression_head]):
+        d.mlp(params[f"MLP_{i + 1}"], f"{prefix}{torch_name}")
+
+
+def posenet_state_dict(variables: dict, cfg: ModelConfig,
+                       use_decoder: bool = False) -> Dict[str, torch.Tensor]:
     """GFObjectPose (score or energy, dino='none', 'pointwise' or 'global',
     pointnet2) variables -> the port's GFObjectPose state dict. ``img_encoder.*``
     comes along where the tree holds it (dino='pointwise'; a global model's
-    tree has none)."""
+    tree has none). ``use_decoder``: the score agent's EDM decoder
+    (sde mode 'edm') in place of the score net, see ``_decoder_head``."""
     if cfg.dino not in ("none", "pointwise", "global") or cfg.pts_encoder != "pointnet2":
         raise NotImplementedError("only pts_encoder='pointnet2' is ported")
     d = StateDict()
@@ -160,8 +175,11 @@ def posenet_state_dict(variables: dict, cfg: ModelConfig) -> Dict[str, torch.Ten
     encoder(d, params["pts_encoder"], stats["pts_encoder"], cfg.pointnet2, "pts_encoder.")
     if "img_encoder" in params:
         img_encoder(d, params["img_encoder"], "img_encoder")
-    _pose_head(d, params["pose_net"], variables["constants"]["pose_net"], cfg.regression_head,
-               "pose_score_net.")
+    if use_decoder:
+        _decoder_head(d, params["pose_net"], cfg.regression_head, "pose_score_net.")
+    else:
+        _pose_head(d, params["pose_net"], variables["constants"]["pose_net"],
+                   cfg.regression_head, "pose_score_net.")
     return d.sd
 
 

@@ -121,8 +121,8 @@ def main():
     def request():
         batch = s.with_image_features(raw)
         feats = s.extract_features(batch)
-        poses = s.sample_candidates(batch, repeat_num=K, T0=smoke.T0, num_steps=smoke.STEPS,
-                                    features=feats, prior=prior)
+        poses = s.sample_candidates(batch, repeat_num=K, T0=smoke.T0, method="fixed",
+                                    num_steps=smoke.STEPS, features=feats, prior=prior)
         en = e.get_energy(batch, poses, fixed_t=1e-5)
         ev = cfg.eval
         agg = aggregate_candidates(poses, en, retain_ratio=ev.retain_ratio,

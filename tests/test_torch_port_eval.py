@@ -545,7 +545,22 @@ def test_evaluator_run_streaming_matches_jax(evaluators, tmp_path):
 
 
 def test_evaluator_refuses_unported_samplers():
+    """Every mode of the JAX evaluator runs: 'ode' as the fixed grid, the
+    others ('rk45', 'euler', 'pc') passed through as sample_candidates'
+    method, as genpose2_tpu/eval/pipeline.py does; a mode no sampler has is
+    refused by the sampler."""
     cfg = tiny_test_config()
-    cfg = cfg.replace(sampler=dataclasses.replace(cfg.sampler, mode="pc"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SingleFrameEvaluator(cfg, None)
+    agent = PoseAgent(cfg, "score", device="cpu")
+    pts = torch.rand(2, cfg.model.num_points, 3)
+    batch = {"pts": pts, "pts_center": pts.mean(1)}
+    K = cfg.eval.eval_repeat_num
+    prior = torch.randn(2 * K, 9, generator=torch.Generator().manual_seed(0))
+    for mode, method in (("ode", "fixed"), ("rk45", "rk45"), ("euler", "euler"), ("pc", "pc")):
+        mcfg = cfg.replace(sampler=dataclasses.replace(cfg.sampler, mode=mode, sampling_steps=4))
+        evaluator = SingleFrameEvaluator(mcfg, agent)
+        assert evaluator.method == method
+        poses = evaluator.inference_score([batch], priors=[prior])[0]
+        assert poses.shape == (2, K, 9) and np.isfinite(poses).all(), mode
+    mcfg = cfg.replace(sampler=dataclasses.replace(cfg.sampler, mode="ode_fixed"))
+    with pytest.raises(NotImplementedError, match="ode_fixed"):
+        SingleFrameEvaluator(mcfg, agent).inference_score([batch], priors=[prior])

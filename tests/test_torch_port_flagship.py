@@ -274,8 +274,8 @@ def flagship():
     psc.model.load_state_dict(scalenet_state_dict(sc_vs))
     pfeat_batch = ps.with_image_features(pbatch)
     feat, _ = ps.extract_features(pfeat_batch)
-    p_poses = ps.sample_candidates(pfeat_batch, repeat_num=K, T0=T0, num_steps=STEPS,
-                                   features=(feat, None), prior=_t(prior))
+    p_poses = ps.sample_candidates(pfeat_batch, repeat_num=K, T0=T0, method="fixed",
+                                   num_steps=STEPS, features=(feat, None), prior=_t(prior))
     # energies and aggregation take JAX's candidates, so that each stage is
     # compared on the same inputs
     p_energy = pe.get_energy(pfeat_batch, _t(want["poses"]))

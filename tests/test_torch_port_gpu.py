@@ -828,9 +828,41 @@ def test_tiny_serving_path_on_card_matches_cpu(card):
     f_cpu, _ = cpu.extract_features(batch)
     f_gpu, _ = gpu.extract_features(batch)
     torch.testing.assert_close(f_gpu.cpu(), f_cpu, rtol=1e-4, atol=1e-4)
-    p_cpu = cpu.sample_candidates(batch, repeat_num=4, T0=0.55, num_steps=8, prior=prior)
-    p_gpu = gpu.sample_candidates(batch, repeat_num=4, T0=0.55, num_steps=8, prior=prior)
+    p_cpu = cpu.sample_candidates(batch, repeat_num=4, T0=0.55, method="fixed", num_steps=8,
+                                  prior=prior)
+    p_gpu = gpu.sample_candidates(batch, repeat_num=4, T0=0.55, method="fixed", num_steps=8,
+                                  prior=prior)
     torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-4, atol=5e-4)
+
+
+def test_tiny_rk45_sampling_on_card_matches_cpu(card):
+    """sample_candidates' default method, the adaptive rk45 solver, at
+    tiny_test_config: the encoder's kernels and the solver on the card
+    against the plain versions on the CPU, same weights and prior. Bound: the
+    candidates' 5e-4 plus sqrt(6 n) times the CPU result's spread when its
+    prior moves by 1e-6 of itself (n the solver's iterations; see
+    tests/test_torch_port_samplers.py:adaptive_bound); the card reads done
+    at most every 8 steps."""
+    cfg = tiny_test_config()
+    cpu = PoseAgent(cfg, "score", device="cpu")
+    _randomize(cpu.model, 14)
+    gpu = PoseAgent(cfg, "score", device=card)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    g = torch.Generator().manual_seed(15)
+    pts = torch.rand(3, 128, 3, generator=g) - 0.5
+    prior = torch.randn(3 * 4, 9, generator=g) * 0.5
+    batch = {"pts": pts, "pts_center": pts.mean(1)}
+    stats = {}
+    p_cpu = cpu.sample_candidates(batch, repeat_num=4, T0=0.55, prior=prior, stats=stats)
+    spread = max(float((cpu.sample_candidates(batch, repeat_num=4, T0=0.55,
+                                              prior=prior * (1 + d)) - p_cpu).abs().max())
+                 for d in (1e-6, -1e-6))
+    gstats = {}
+    p_gpu = gpu.sample_candidates(batch, repeat_num=4, T0=0.55, prior=prior, stats=gstats)
+    n = len(stats["err_norm"])
+    assert gstats["host_reads"] <= len(gstats["err_norm"]) // 8 + 1
+    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=1e-4,
+                               atol=5e-4 + (6 * n) ** 0.5 * spread)
 
 
 def test_tiny_train_step_on_card_matches_cpu(card):

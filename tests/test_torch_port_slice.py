@@ -106,8 +106,8 @@ def slice_run():
     psc = ScaleAgent(pcfg, pts_dim=128, device="cpu")
     psc.model.load_state_dict(scalenet_state_dict(sc_vs))
     feat, _ = ps.extract_features(pbatch)
-    p_poses = ps.sample_candidates(pbatch, repeat_num=K, T0=T0, num_steps=STEPS,
-                                   features=(feat, None), prior=_t(prior))
+    p_poses = ps.sample_candidates(pbatch, repeat_num=K, T0=T0, method="fixed",
+                                   num_steps=STEPS, features=(feat, None), prior=_t(prior))
     # energies and aggregation take JAX's candidates, so that each stage is
     # compared on the same inputs
     p_energy = pe.get_energy(pbatch, _t(want["poses"]))

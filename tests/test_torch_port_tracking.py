@@ -126,13 +126,13 @@ def test_warm_start_candidates_match_jax(setup, T0, fused):
     want = agent.sample_candidates(state, setup["jb"][0], key, repeat_num=K, T0=T0,
                                    init_x=jnp.asarray(init_x), method="fixed", num_steps=STEPS)
     got = port.sample_candidates(setup["pb"][0], repeat_num=K, T0=T0, init_x=_t(init_x),
-                                 num_steps=STEPS, prior=_t(prior))
+                                 method="fixed", num_steps=STEPS, prior=_t(prior))
     # the JAX package's bound for its fused RK4 against the scan after denoise,
     # renormalisation and the center re-add (tests/test_ode_fused.py:112)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=5e-4)
     # a warm start stays near its start: the candidates are not the cold ones
-    cold = port.sample_candidates(setup["pb"][0], repeat_num=K, T0=T0, num_steps=STEPS,
-                                  prior=_t(prior))
+    cold = port.sample_candidates(setup["pb"][0], repeat_num=K, T0=T0, method="fixed",
+                                  num_steps=STEPS, prior=_t(prior))
     assert np.abs(cold.numpy() - got.numpy()).max() > 1e-2
 
 

@@ -472,8 +472,9 @@ def test_inference_reads_the_ema_like_jax(trained, use_ema):
     want_poses = np.asarray(s["agent"].sample_candidates(
         s["state"], jbatch, key, repeat_num=KC, T0=T0_C, use_ema=use_ema, method="fixed",
         num_steps=STEPS_C))
-    got_poses = s["port"].sample_candidates(pbatch, repeat_num=KC, T0=T0_C, num_steps=STEPS_C,
-                                            prior=_t(prior), state=s["pstate"], use_ema=use_ema)
+    got_poses = s["port"].sample_candidates(pbatch, repeat_num=KC, T0=T0_C, method="fixed",
+                                            num_steps=STEPS_C, prior=_t(prior),
+                                            state=s["pstate"], use_ema=use_ema)
     np.testing.assert_allclose(got_poses.numpy(), want_poses, rtol=1e-4, atol=5e-4)
     # energies of the same candidates at the same t: s_theta divides by
     # std(1e-5), so float32 differences grow a hundredfold
