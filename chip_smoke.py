@@ -108,6 +108,21 @@ Phases, one JSON line each:
             (finite, within 2e-2 of max |bits| of the plain versions'). The
             reference phase also runs rk45, pc and edm at tiny_test_config,
             card against CPU, plain versions on both;
+  cli       (after samplers) the command line from files on disk: a dataset
+            in the Omni6DPose layout (24 frames of 640x480, 6-8 ellipsoids
+            each, PNG colour, EXR depth, PNG mask, meta.json, obj_meta.json;
+            3 videos of 4 frames), then through genpose2_tpu_torch.cli's
+            functions a flagship score agent trained at B=64 for 2 epochs
+            (dino='pointwise', DINOv3 ViT-S+/16, 1,024 points, 256-px crops),
+            scale and energy-with-ranking agents from its checkpoint, eval
+            (three agents, run_streaming) and track (multiplexed) from the
+            three checkpoints; every train step's launches exactly FPS 4,
+            ball query 8, ViT attention 12, add+LN 12 (a scale step none);
+            the first loaded batch's step, kernels against plain, within the
+            train phase's bounds; a resume from the epoch-1 checkpoint
+            replaying epoch 2 bit for bit; loader samples/s alone, step ms
+            with and without the loader running, the card's busy share over
+            the resumed epoch, an eval batch's and a tracking step's ms;
   timing    CUDA-event times of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the main
             paths' shapes, with the bound from this run's shapes and data; the
@@ -139,6 +154,7 @@ import os
 import pstats
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -2152,6 +2168,299 @@ def main():
 
     samplers()
 
+    # -------------------------------------------------------------------- cli
+    per_cli = []  # launch counts of the cli phase's commands, for the table
+    CLI_FRAMES, CLI_OBJECTS, CLI_VIDEOS, CLI_VIDEO_FRAMES = 24, (6, 8), 3, 4
+    SERVING = ("fps", "ball_count", "fused_sa_stage", "fused_rk4", "relpe_attention",
+               "residual_layernorm", "vit_attention", "add_layernorm")
+
+    @phase("cli")
+    def cli_phase():
+        """The command line from files on disk: a dataset in the Omni6DPose
+        layout (640x480 frames of 6-8 ellipsoids: PNG colour, EXR depth, PNG
+        mask, meta.json, obj_meta.json; and short videos), then, through
+        genpose2_tpu_torch.cli's own functions, a flagship score agent trained
+        at B = 64 for 2 epochs, scale and energy agents from its checkpoint
+        (1 epoch each), eval and track from the three checkpoints. Every
+        train step's launches exact; the first loaded batch's step with the
+        kernels against the plain versions; a resume from the epoch-1
+        checkpoint replaying epoch 2 bit for bit; the loader alone, steps
+        with and without the loader, the card's busy share over an epoch, an
+        eval batch's and a tracking step's ms."""
+        import tempfile
+
+        from genpose2_tpu_torch import cli
+        from genpose2_tpu_torch.data.loader import DataLoader
+        from genpose2_tpu_torch.data.omni6dpose import Omni6DPoseDataset
+        from genpose2_tpu_torch.training.trainer import Trainer
+
+        ok = True
+        steps, timed = [], {"eval_batch": [], "track_step": []}
+
+        def on_card():
+            return {k: _cuda.launch_counts[k] for k in _cuda.KERNELS}
+
+        def step_timer(fn):
+            def run(self, *a, **kw):
+                torch.cuda.synchronize()
+                before, t = on_card(), time.perf_counter()
+                out = fn(self, *a, **kw)
+                torch.cuda.synchronize()
+                now = on_card()
+                steps.append({"agent": getattr(self, "agent_type", "scale"),
+                              "ms": 1e3 * (time.perf_counter() - t),
+                              "counts": {k: now[k] - before[k] for k in now}})
+                return out
+            return run
+
+        def call_timer(fn, key):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timed[key].append(1e3 * (time.perf_counter() - t))
+                return out
+            return run
+
+        patched = [(PoseAgent, "train_step"), (ScaleAgent, "train_step"),
+                   (SingleFrameEvaluator, "_run_one"), (PoseTracker, "step")]
+        saved = [getattr(c, n) for c, n in patched]
+        PoseAgent.train_step = step_timer(saved[0])
+        ScaleAgent.train_step = step_timer(saved[1])
+        SingleFrameEvaluator._run_one = call_timer(saved[2], "eval_batch")
+        PoseTracker.step = call_timer(saved[3], "track_step")
+
+        def command(name, argv, required):
+            """One command with the launch counts set to 0 just before it and
+            read just after; returns (its result, ms, counts, good)."""
+            out, ms, counts = counted(lambda: cli.main(argv))
+            per_cli.append({"counts": counts})
+            missing = [k for k in required if counts[k] == 0]
+            emit({"phase": "cli", "command": name, "ok": not missing, "ms": ms,
+                  "launches": counts, "kernels_not_launched": missing})
+            return out, ms, counts, not missing
+
+        tmp = tempfile.TemporaryDirectory()
+        t_phase = time.perf_counter()
+        try:
+            root = tmp.name
+            t0 = time.perf_counter()
+            data = synthetic_frame.write_dataset(
+                root, np.random.default_rng(SEED), CLI_FRAMES, CLI_OBJECTS, videos=CLI_VIDEOS,
+                video_frames=CLI_VIDEO_FRAMES)
+            write_s = time.perf_counter() - t0
+            flags = ["--source", "Omni6DPose", "--data_path", data["frames"], "--dino",
+                     "pointwise", "--batch_size", str(B), "--seed", str(SEED), "--device", "cuda"]
+            score_dir = os.path.join(root, "score")
+            score_ckpt = os.path.join(score_dir, "ckpt", "final")
+            train_req = ("fps", "ball_query", "vit_attention", "add_layernorm")
+
+            trainer, score_ms, _, good = command(
+                "train score", ["train", "--agent_type", "score", "--log_dir", score_dir,
+                                "--n_epochs", "2", "--eval_freq", "1", *flags], train_req)
+            ok = ok and good
+            score_steps = list(steps)
+            want = train_counts(True)
+            good = (len(score_steps) == 2 * trainer.steps_per_epoch
+                    and all(s["counts"] == want for s in score_steps)
+                    and os.path.exists(score_ckpt))
+            ok = ok and good
+            with open(os.path.join(score_dir, "score_metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            losses = [r["epoch_loss"] for r in recs if "epoch_loss" in r]
+            evals = [r for r in recs if "eval_deg_mean" in r]
+            good = (good and len(losses) == 2 and all(map(math.isfinite, losses))
+                    and len(evals) == 2)
+            ok = ok and good
+            emit({"phase": "cli", "check": "score_steps", "ok": good, "frames": CLI_FRAMES,
+                  "write_s": write_s, "steps_per_epoch": trainer.steps_per_epoch,
+                  "step_ms": [s["ms"] for s in score_steps],
+                  "launches_per_step": score_steps[0]["counts"] if score_steps else None,
+                  "expected": want, "epoch_losses": losses,
+                  "eval_deg_mean": [r["eval_deg_mean"] for r in evals]})
+
+            # the first loaded batch: a step with the kernels against the
+            # same step with the plain versions (the train phase's bounds)
+            agent, state = trainer.agent, trainer.state
+            loader_fn = cli.make_loader_fn(trainer.cfg, "train", "score", dev)
+            first = next(iter(loader_fn(1)))
+            batch = agent.with_image_features(
+                trainer._prepare(first, torch.Generator(dev).manual_seed(5)))
+            recorded = {"kernel": [], "plain": []}
+
+            def recording(fn, key):
+                def run(*a):
+                    out = fn(*a)
+                    recorded[key].append(out)
+                    return out
+                return run
+
+            pointnet2_module.ball_query = recording(ball_query, "kernel")
+            pointnet2_module.ball_query_plain = recording(ball_query_plain, "plain")
+            try:
+                l_k, _, g_k, _ = agent.loss_and_grads(state, batch,
+                                                      torch.Generator(dev).manual_seed(7))
+                l_p, _, g_p, _ = agent.loss_and_grads(state, batch,
+                                                      torch.Generator(dev).manual_seed(7),
+                                                      plain=True)
+            finally:
+                pointnet2_module.ball_query = ball_query
+                pointnet2_module.ball_query_plain = ball_query_plain
+            ks = [g for g in g_k.values() if g is not None]
+            ps = [g for g in g_p.values() if g is not None]
+            gmax = max(float(g.abs().max()) for g in ps)
+            idx_equal = (len(recorded["kernel"]) == len(recorded["plain"]) == 8 and all(
+                torch.equal(a, b) for a, b in zip(recorded["kernel"], recorded["plain"])))
+            l_k, l_p = float(l_k.detach()), float(l_p.detach())
+            cmp = {"loss": [l_k, l_p], "loss_rel": abs(l_k - l_p) / abs(l_p),
+                   "grad_err_over_max": max(max_err(a, b) for a, b in zip(ks, ps)) / gmax,
+                   "ball_query_indices_equal": idx_equal,
+                   "tolerance": {"loss_rel": 1e-5, "grad_err_over_max": 5e-4}}
+            good = idx_equal and cmp["loss_rel"] <= 1e-5 and cmp["grad_err_over_max"] <= 5e-4
+            ok = ok and good
+            emit({"phase": "cli", "check": "first_batch_kernel_vs_plain", "ok": good,
+                  "paths": len(set(first["path"])), **cmp})
+
+            # resume from the epoch-1 checkpoint: epoch 2 again, bit for bit;
+            # the card's kernel time over it (torch.profiler) against its wall
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            resumed = Trainer(trainer.cfg, "score", trainer.steps_per_epoch, device=dev,
+                              log_dir=os.path.join(root, "resumed"),
+                              resume_from=os.path.join(score_dir, "ckpt", "epoch_1"))
+            resumed.init()
+            n_before = len(steps)
+            t = time.perf_counter()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                resumed.fit(loader_fn, epochs=2)
+                torch.cuda.synchronize()
+            fit_ms = 1e3 * (time.perf_counter() - t)
+            busy = sum(ev.device_time_total / 1e3 for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA)
+            same = [torch.equal(a, b) for a, b in zip(state_tensors(resumed.state),
+                                                     state_tensors(state))]
+            good = (all(same) and resumed.state.step == state.step
+                    and len(steps) - n_before == trainer.steps_per_epoch)
+            ok = ok and good
+            emit({"phase": "cli", "check": "resume", "ok": good, "identical": sum(same),
+                  "of": len(same), "step": resumed.state.step,
+                  "epoch_ms_profiled": fit_ms, "device_ms": busy, "busy_share": busy / fit_ms})
+            del resumed
+
+            # the loader alone (a fresh dataset: the first pass decodes the
+            # frames, the second reads its frame cache) and one thread's
+            # samples under cProfile; then the epoch's batches in memory,
+            # steps alone against steps beside a loader pass on another
+            # thread (its 8 workers decoding and cropping), alternated
+            ds = Omni6DPoseDataset(trainer.cfg.data, mode="train")
+            loader = DataLoader(ds, B, seed=SEED + 1)
+            passes = []
+            for _ in range(2):
+                t = time.perf_counter()
+                n = sum(len(b["path"]) for b in loader)
+                passes.append(n / (time.perf_counter() - t))
+            prof = cProfile.Profile()
+            t = time.perf_counter()
+            prof.runcall(lambda: [ds[i] for i in range(32)])
+            one_thread = 32 / (time.perf_counter() - t)
+            stats = pstats.Stats(prof)
+            hot = [{"function": f"{fn[0].split('/')[-1]}:{fn[1]}:{fn[2]}", "calls": st[1],
+                    "tottime_ms": 1e3 * st[2], "cumtime_ms": 1e3 * st[3]}
+                   for fn, st in sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]]
+            g = torch.Generator(dev).manual_seed(11)
+            prepared = [trainer._prepare(raw, g) for raw in loader_fn(2)]
+
+            def timed_steps(count):
+                out = []
+                for i in range(count):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    agent.train_step(state, prepared[i % len(prepared)], g)
+                    torch.cuda.synchronize()
+                    out.append(1e3 * (time.perf_counter() - t))
+                return out
+
+            alone, beside, loader_rates = [], [], []
+            for _ in range(2):
+                alone += timed_steps(3)
+                stop, first = threading.Event(), threading.Event()
+
+                def loader_passes():
+                    n, t = 0, time.perf_counter()
+                    while not stop.is_set():
+                        for b_ in DataLoader(ds, B, seed=SEED + 2):
+                            n += len(b_["path"])
+                            first.set()
+                            if stop.is_set():
+                                break
+                    loader_rates.append(n / (time.perf_counter() - t))
+
+                worker = threading.Thread(target=loader_passes)
+                worker.start()
+                first.wait()  # the loader is in full swing
+                beside += timed_steps(3)
+                stop.set()
+                worker.join()
+            med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+            emit({"phase": "cli", "check": "loader", "ok": bool(beside), "samples": len(ds),
+                  "loader_samples_per_s_cold": passes[0], "loader_samples_per_s_warm": passes[1],
+                  "one_thread_samples_per_s": one_thread, "one_thread_profile_top": hot,
+                  "fit_step_ms": [s_["ms"] for s_ in score_steps],
+                  "step_ms_alone": alone, "step_ms_beside_loader": beside,
+                  "step_ms_alone_median": med(alone),
+                  "step_ms_beside_loader_median": med(beside) if beside else None,
+                  "loader_samples_per_s_beside_steps": loader_rates})
+            data_cfg = trainer.cfg.data
+            del trainer, agent, state
+
+            for name in ("scale", "energy_with_ranking"):
+                n_before = len(steps)
+                _, ms, _, good = command(
+                    f"train {name}", ["train", "--agent_type", name, "--log_dir",
+                                      os.path.join(root, name), "--score_ckpt", score_ckpt,
+                                      "--n_epochs", "1", *flags],
+                    () if name == "scale" else train_req)
+                own = steps[n_before:]
+                want = dict.fromkeys(_cuda.KERNELS, 0) if name == "scale" else train_counts(True)
+                good = (good and len(own) > 0 and all(s["counts"] == want for s in own)
+                        and os.path.exists(os.path.join(root, name, "ckpt", "final")))
+                ok = ok and good
+                emit({"phase": "cli", "check": f"{name}_steps", "ok": good,
+                      "step_ms": [s["ms"] for s in own], "expected": want})
+
+            ckpts = ["--score_ckpt", score_ckpt,
+                     "--energy_ckpt", os.path.join(root, "energy_with_ranking", "ckpt", "final"),
+                     "--scale_ckpt", os.path.join(root, "scale", "ckpt", "final")]
+            metrics, ms, _, good = command(
+                "eval", ["eval", "--log_dir", os.path.join(root, "evalrun"), *ckpts, *flags],
+                SERVING)
+            objects = len(Omni6DPoseDataset(data_cfg, mode="test"))
+            good = (good and math.isfinite(metrics.deg_mean) and math.isfinite(metrics.sht_mean)
+                    and len(timed["eval_batch"]) == -(-objects // B))
+            ok = ok and good
+            emit({"phase": "cli", "check": "eval", "ok": good, "objects": objects,
+                  "batch_ms": timed["eval_batch"], "deg_mean": metrics.deg_mean,
+                  "sht_mean": metrics.sht_mean, "iou_mean": metrics.iou_mean})
+            metrics, ms, _, good = command(
+                "track", ["track", *flags, "--data_path", data["videos"], "--log_dir",
+                          os.path.join(root, "track"), "--T0", "0.25", *ckpts], SERVING)
+            good = good and math.isfinite(metrics.deg_mean) and len(timed["track_step"]) > 0
+            ok = ok and good
+            emit({"phase": "cli", "check": "track", "ok": good, "videos": CLI_VIDEOS,
+                  "step_ms": timed["track_step"], "deg_mean": metrics.deg_mean,
+                  "phase_seconds": time.perf_counter() - t_phase})
+        finally:
+            for (c, n), fn in zip(patched, saved):
+                setattr(c, n, fn)
+            tmp.cleanup()
+        if not ok:
+            raise AssertionError("a cli check failed")
+
+    cli_phase()
+
     # ------------------------------------------------------------------ timing
     table = []
 
@@ -2170,7 +2479,8 @@ def main():
                          for k, v in eval_batch_counts.items()}
         rk45_launches = {(f"{k}.bf16" if k in dtyped else k): v
                          for k, v in (per_samplers[0]["counts"] if per_samplers else {}).items()}
-        for counts in per_train:  # the training backbone is bf16 in both settings
+        # the training backbone is bf16 in both settings, and the CLI's too
+        for counts in per_train + [c["counts"] for c in per_cli]:
             for k, v in counts.items():
                 key = f"{k}.bf16" if k == "vit_attention" else k
                 launches[key] = launches.get(key, 0) + v

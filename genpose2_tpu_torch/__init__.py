@@ -5,6 +5,8 @@ nor anything of ``genpose2_tpu``; what it needs from there (the config tree)
 is a copy of its own. Every Pallas kernel on the ported path is a CUDA C++
 kernel under ``ops/csrc/``, built by ``nvcc`` at first use (``ops/_cuda.py``).
 
-Ported so far: the ``dino='none'`` / ``pts_encoder='pointnet2'`` serving
-path (``training/agent.py``). ROADMAP.md lists what is still to port.
+Entry points: ``api.GenPose2`` (frames), ``eval/`` (evaluation and
+tracking), ``training/`` (the agents and the ``Trainer``) and ``cli``
+(train, eval and track from files on disk). ROADMAP.md lists what is still
+to port.
 """

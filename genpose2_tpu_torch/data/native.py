@@ -1,12 +1,16 @@
 """ctypes binding of the repo's native host core (``native/gp2_host.cc``,
-outside both packages): only ``extract_cloud``, the fused backprojection and
-sampling of a crop's valid pixels.
+outside both packages): ``extract_cloud``, the fused backprojection and
+sampling of a crop's valid pixels, and ``exr_chunk``, the fused inflate and
+reorder of one EXR chunk.
 
 The front end takes the native branch exactly when the JAX package does
 (genpose2_tpu/data/native.py): the library is there or ``make -C native``
 builds it, and ``GP2_DISABLE_NATIVE`` is unset. The native branch samples with
 its own generator, seeded from the caller's numpy generator, so the two
-branches pick different points from the same frame.
+branches pick different points from the same frame. ``data/exr.py`` takes
+``exr_chunk`` exactly when the JAX package's reader takes it: the library is
+there, it has the entry, and ``GP2_DISABLE_NATIVE`` is unset; both decoders
+give the same bytes.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.c_uint64, ctypes.c_int, f32p, i32p, i32p,
     ]
     lib.gp2_extract_cloud.restype = ctypes.c_int
+    if hasattr(lib, "gp2_exr_chunk"):  # an older built library lacks it
+        lib.gp2_exr_chunk.argtypes = [ctypes.c_char_p, ctypes.c_int, u8p, ctypes.c_int]
+        lib.gp2_exr_chunk.restype = ctypes.c_int
     _lib = lib
     return _lib
 
@@ -57,6 +64,22 @@ def available() -> bool:
     if os.environ.get("GP2_DISABLE_NATIVE"):
         return False
     return get_lib() is not None
+
+
+def exr_chunk(zdata: bytes, expect: int) -> Optional[np.ndarray]:
+    """Inflate one EXR ZIP chunk and undo its predictor and interleave
+    natively: the decoded (expect,) uint8 block, or None when the native
+    branch is off (the caller decodes in numpy)."""
+    if os.environ.get("GP2_DISABLE_NATIVE"):
+        return None
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "gp2_exr_chunk"):
+        return None
+    out = np.empty(expect, np.uint8)
+    n = lib.gp2_exr_chunk(zdata, len(zdata), out, expect)
+    if n != expect:
+        raise ValueError(f"native EXR chunk decode failed (rc={n})")
+    return out
 
 
 def extract_cloud(roi_depth: np.ndarray, roi_mask: np.ndarray, coord_x: np.ndarray,

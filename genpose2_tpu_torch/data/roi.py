@@ -1,6 +1,7 @@
-"""Host-side RoI crops without OpenCV (port of genpose2_tpu/data/roi.py, the
-eval branch): square crop windows, the dynamic zoom-in window, the CenterNet
-affine, and the affine crop itself.
+"""Host-side RoI crops without OpenCV (port of genpose2_tpu/data/roi.py):
+square crop windows, the dynamic zoom-in window, the CenterNet affine, the
+affine crop itself, and the training branch's mask deformation ``defor_2D``
+(``erode`` in place of ``cv2.erode``).
 
 ``get_affine_transform`` solves the 3-point affine as ``cv2.getAffineTransform``
 does: a 6x6 system in float64 by Gaussian elimination with partial pivoting,
@@ -274,6 +275,42 @@ def crop_resize_by_warp_affine(img, center, scale, output_size, rot=0,
         output_size = (output_size, output_size)
     trans = get_affine_transform(center, scale, rot, output_size)
     return warp_affine(img, trans, (int(output_size[0]), int(output_size[1])), interpolation)
+
+
+def erode(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.erode(img, np.ones((k, k)), iterations=1)``: each pixel the
+    minimum of its k x k window, the window's anchor at k // 2 (offsets
+    -(k // 2) .. k - 1 - k // 2), pixels past the image's edge left out (OpenCV's
+    border for erosion is the dtype's maximum)."""
+    h, w = img.shape
+    a = k // 2
+    padded = np.full((h + k - 1, w + k - 1), np.iinfo(img.dtype).max, img.dtype)
+    padded[a:a + h, a:a + w] = img
+    out = padded[:h, :w].copy()
+    for dy in range(k):
+        for dx in range(k):
+            np.minimum(out, padded[dy:dy + h, dx:dx + w], out=out)
+    return out
+
+
+def defor_2D(rng: np.random.Generator, roi_mask: np.ndarray, rand_r: int = 3,
+             rand_pro: float = 0.5) -> np.ndarray:
+    """Randomized mask erosion: with probability rand_pro, erode the mask with
+    a random k x k kernel (k in 1..rand_r) and drop each pixel of the eroded
+    boundary with probability 1/2. The draws come in the JAX package's
+    order."""
+    if rng.random() > rand_pro or rand_r <= 0:
+        return roi_mask
+    mask = roi_mask.squeeze().copy().astype(np.uint8)
+    kernel_size = int(rng.integers(1, rand_r + 1))
+    boundary = mask - erode(mask, kernel_size)
+    ys, xs = np.nonzero(boundary)
+    if len(ys) == 0:
+        return roi_mask
+    keep = rng.random(len(ys)) > 0.5
+    mask_out = mask.copy()
+    mask_out[ys[~keep], xs[~keep]] = 0
+    return mask_out.reshape(roi_mask.shape).astype(roi_mask.dtype)
 
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)

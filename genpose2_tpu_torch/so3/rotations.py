@@ -100,6 +100,19 @@ def axis_angle_to_matrix(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tenso
     return m.reshape(angle.shape + (3, 3))
 
 
+def euler_zyx_to_matrix(euler: torch.Tensor) -> torch.Tensor:
+    """(..., 3) ZYX intrinsic angles (z, y, x) -> (..., 3, 3) = Rz @ Ry @ Rx."""
+    az, ay, ax = euler[..., 0], euler[..., 1], euler[..., 2]
+
+    def rot(a, rows):
+        c, s, o, one = torch.cos(a), torch.sin(a), torch.zeros_like(a), torch.ones_like(a)
+        pick = {"c": c, "s": s, "-s": -s, "0": o, "1": one}
+        return torch.stack([pick[k] for k in rows.split()], -1).reshape(a.shape + (3, 3))
+
+    return (rot(az, "c -s 0 s c 0 0 0 1") @ rot(ay, "c 0 s 0 1 0 -s 0 c")
+            @ rot(ax, "1 0 0 0 c -s 0 s c"))
+
+
 def get_pose_representation(R: torch.Tensor, pose_mode: str) -> torch.Tensor:
     """(..., 3, 3) -> the rotation part of the pose representation. The
     quaternion and 'rot_matrix' modes are ported."""

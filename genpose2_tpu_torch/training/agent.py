@@ -177,7 +177,7 @@ class PoseAgent(_Trainable):
         runs the plain versions of the kernels."""
         if self.cfg.model.dino == "global":
             raise NotImplementedError("training with dino='global' is not ported yet "
-                                      "(see ROADMAP.md)")
+                                      "(ROADMAP.md queue 1, the rest of training)")
         if self.use_decoder:
             raise NotImplementedError("training the EDM decoder (sde mode 'edm') needs "
                                       "edm_loss, not ported yet (ROADMAP.md queue 1, the "

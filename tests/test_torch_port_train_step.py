@@ -318,9 +318,9 @@ def test_same_seed_replays_the_step_and_another_seed_differs():
     assert runs[0][0] != runs[2][0]
 
 
-def test_trainer_runs_score_then_scale_epochs():
+def test_trainer_runs_score_then_scale_epochs(tmp_path):
     cfg = tiny_test_config()
-    trainer = Trainer(cfg, "score", steps_per_epoch=SPE, device="cpu")
+    trainer = Trainer(cfg, "score", steps_per_epoch=SPE, device="cpu", log_dir=str(tmp_path))
     state = trainer.init()
     with torch.no_grad():
         for p in trainer.agent.model.parameters():
@@ -335,15 +335,21 @@ def test_trainer_runs_score_then_scale_epochs():
     raw = [dict(b, axes_training=_t(rng.normal(size=(B, 4, 3, 3))),
                 bbox_side_len=_t(rng.uniform(0.05, 0.3, size=(B, 3)))) for b in batches]
     scale = Trainer(cfg, "scale", steps_per_epoch=SPE, frozen_score=(trainer.agent, state),
-                    device="cpu")
+                    device="cpu", log_dir=str(tmp_path))
     scale.init(raw[0])
     width = trainer.agent.model.pts_encoder.out_channels
     assert scale.agent.model.fusion_tail_length[0].in_features == width + 256
     last = scale.train_epoch(raw)
     assert scale.state.step == 2 and bool(torch.isfinite(last["loss"]))
-    # raw batches wait for process_batch
-    with pytest.raises(NotImplementedError):
-        trainer.train_epoch([{"pts": batches[0]["pts"]}])
+    # a raw collated batch goes through process_batch (not NOCS-style: no
+    # augmentation) and trains as its prepared form does
+    R = np.linalg.qr(rng.normal(size=(B, 3, 3)))[0].astype(np.float32)
+    raw_batch = {"pcl_in": batches[0]["pts"].numpy(), "rotation": R,
+                 "translation": rng.uniform(-0.1, 0.1, (B, 3)).astype(np.float32)}
+    prepared = trainer._prepare(raw_batch)
+    assert prepared["zero_mean_gt_pose"].shape == (B, 9)
+    last = trainer.train_epoch([raw_batch], torch.Generator().manual_seed(8))
+    assert trainer.state.step == 3 and bool(torch.isfinite(last["loss"]))
 
 
 def test_zero_init_energy_heads():
@@ -375,9 +381,10 @@ def test_train_steps_equal_repeated_train_step():
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
-def test_trainer_energy_with_ranking_takes_candidates():
+def test_trainer_energy_with_ranking_takes_candidates(tmp_path):
     cfg = tiny_test_config()
-    trainer = Trainer(cfg, "energy_with_ranking", steps_per_epoch=SPE, device="cpu")
+    trainer = Trainer(cfg, "energy_with_ranking", steps_per_epoch=SPE, device="cpu",
+                      log_dir=str(tmp_path))
     trainer.init()
     batches = [_port_batch(_batch(cfg, 60 + i, ranking=True)) for i in range(2)]
     last = trainer.train_epoch(batches, torch.Generator().manual_seed(9))
@@ -387,6 +394,7 @@ def test_trainer_energy_with_ranking_takes_candidates():
     # them from the frozen score agent (its EMA weights), with their errors
     score = _randomized_agent(cfg, "score", 63)
     ranking = Trainer(cfg, "energy_with_ranking", steps_per_epoch=SPE, device="cpu",
+                      log_dir=str(tmp_path),
                       frozen_score=(score, score.init_state()))
     ranking.init()
     rng = np.random.default_rng(62)
@@ -561,14 +569,14 @@ def test_ema_weights_differ_and_come_back_after_an_error(trained):
     assert all(torch.equal(v, live[k]) for k, v in _live(port).items())
 
 
-def test_trainer_reads_the_frozen_score_features_through_the_ema(trained):
+def test_trainer_reads_the_frozen_score_features_through_the_ema(trained, tmp_path):
     s = trained["score"]
     cfg = tiny_test_config()
     rng = np.random.default_rng(72)
     raw = dict(_port_batch(s["batch"]), axes_training=_t(rng.normal(size=(B, 4, 3, 3))),
                bbox_side_len=_t(rng.uniform(0.05, 0.3, size=(B, 3))))
     scale = Trainer(cfg, "scale", steps_per_epoch=SPE, frozen_score=(s["port"], s["pstate"]),
-                    device="cpu")
+                    device="cpu", log_dir=str(tmp_path))
     scale.init(raw)
     fed = scale._prepare(raw)["pts_feat"]
     assert torch.equal(fed, s["port"].extract_features(raw, state=s["pstate"])[0])
