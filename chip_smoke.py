@@ -32,7 +32,8 @@ Phases, one JSON line each:
             (64 x 272, 384), the unpadded attention at (64, 261, 384) and the
             in-kernel RoPE attention at the padded flagship shape with the
             flagship's tables; RK4 also at a tracking call's shape (600 rows,
-            100 steps from T0 0.15); past the old size caps (clouds and
+            100 steps from T0 0.15), and at the pose modes' widths (D = 7,
+            R_and_T; D = 6, RT; H1 = 512) at both shapes; past the old size caps (clouds and
             draws of a generator of their own): FPS at 16,384 and 32,768
             points, ball count and ball query at 32,768 (B = 12 and 1),
             exact, and the three ViT attention entries at 1,029 and 1,605
@@ -123,6 +124,20 @@ Phases, one JSON line each:
             replaying epoch 2 bit for bit; loader samples/s alone, step ms
             with and without the loader running, the card's busy share over
             the resumed epoch, an eval batch's and a tracking step's ms;
+  modes     (after cli) the rest of the model surface at full width, weights
+            and draws from a generator of its own: flagship requests (as the
+            request phase's) in quat_wxyz (R_and_T) bf16 and float32,
+            quat_xyzw (R_and_T) bf16 and euler_xyz (RT) bf16, aggregation in
+            the pose mode, quaternion rows unit to 1e-5; dino='none'
+            requests with pts_encoder 'pointnet' (float32) and
+            'pointnet_and_pointnet2' (float32, bf16); PointNet2SegMSG (the
+            default config, B=64, N=1,024) eval and train forward with
+            backward, FPS and ball-query indices equal to the plain
+            versions'; train steps at B=64 (repeat_num 20, Adam, three each,
+            median ms): the EDM decoder, a flagship score step and the
+            distilled step it teaches, dino='global' score and energy with
+            ranking, quat_wxyz, pointnet_and_pointnet2; each kernel run held
+            against its plain version, launches exact;
   timing    CUDA-event times of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the main
             paths' shapes, with the bound from this run's shapes and data; the
@@ -358,7 +373,7 @@ def main():
                                                             tracking_metrics)
     from genpose2_tpu_torch.models.attention import EfficientRelativePositionalEncoding
     from genpose2_tpu_torch.models.fast_encoder import stage_arguments
-    from genpose2_tpu_torch.models.scorenet import fast_score_weights
+    from genpose2_tpu_torch.models.scorenet import PoseScoreNet, fast_score_weights
     from genpose2_tpu_torch.ops import _cuda
     from genpose2_tpu_torch.models import pointnet2 as pointnet2_module
     from genpose2_tpu_torch.models import vit as vit_module
@@ -381,7 +396,8 @@ def main():
     from genpose2_tpu_torch.ops.vit_attention import (vit_attention, vit_attention_plain,
                                                       vit_attention_tm, vit_attention_tm_plain)
     from genpose2_tpu_torch.so3.noise import truncated_normal
-    from genpose2_tpu_torch.so3.rotations import matrix_to_rot6d_cols, rot6d_cols_to_matrix
+    from genpose2_tpu_torch.so3.rotations import (get_pose_representation, matrix_to_rot6d_cols,
+                                                  rot6d_cols_to_matrix)
     from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent, calc_likelihood
     from genpose2_tpu_torch.training.optim import global_norm
 
@@ -856,6 +872,7 @@ def main():
         return {**w, "static": w["static"][:rows].contiguous()}
 
     long_in = {}  # the kernels phase's inputs past the old size caps, timed again
+    rk4_modes_in = {}  # (D, dtype) -> RK4 inputs at the pose modes' widths, timed again
 
     @phase("kernels")
     def kernels():
@@ -936,6 +953,35 @@ def main():
                              "args": (x0, w, s.sde)}
             line["rk4"][dtype] = {"max_abs_err": err, "within": close,
                                   "tracking": {"max_abs_err": err_t, "within": close_t}}
+        # RK4 at the pose modes' widths: the quaternion modes' R_and_T net
+        # (two 256-wide heads, D = 7) and euler_xyz's RT net (one 512-wide
+        # head, D = 6), H1 = 512, at the request's and a tracking call's
+        # shapes, to the bounds above (weights and draws of a generator of
+        # their own)
+        line["rk4_pose_modes"] = {}
+        rgen = torch.Generator().manual_seed(SEED + 7)
+        sde = paths["none"]["float32"][0].sde
+        for D, head in ((7, "R_and_T"), (6, "RT")):
+            net = PoseScoreNet(sde.marginal_std, D, head, 1024).to(dev)
+            randomize(net, rgen)
+            w = fast_score_weights(net, torch.randn(B * K, 1024, generator=rgen).to(dev))
+            x0 = sde.prior_sample((B * K, D), T=T0, generator=rgen).to(dev)
+            for dtype in ("float32", "bfloat16"):
+                tol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
+                name = "fused_rk4" if dtype == "float32" else "fused_rk4.bf16"
+                rk4_modes_in[(D, dtype)] = (x0, w, sde)
+                for label, rows, t0, steps in (("request", B * K, T0, STEPS),
+                                               ("tracking", TRACK_R, TRACK_T0, TRACK_STEPS)):
+                    xs, ws = x0[:rows].contiguous(), rk4_rows(w, rows)
+                    xk = fused_rk4_integrate(xs, ws, sde, t0, steps, dtype)
+                    xp = fused_rk4_plain(xs, ws, sde, t0, steps, dtype)
+                    err = max_err(xk, xp)
+                    close = (bool(torch.allclose(xk, xp, atol=tol[0], rtol=tol[1]))
+                             and bool(torch.isfinite(xk).all()))
+                    ok = ok and close
+                    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+                    line["rk4_pose_modes"][f"D{D}_{head}_{dtype}_{label}"] = {
+                        "rows": rows, "steps": steps, "max_abs_err": err, "within": close}
 
         # rel-PE attention at the Fus encoder's four stage shapes; the JAX
         # package's bounds for its kernel (tests/test_ops.py:395, 405)
@@ -2461,6 +2507,299 @@ def main():
 
     cli_phase()
 
+    # ------------------------------------------------------------------- modes
+    per_modes = []  # launch counts of the modes phase's counted runs, for the table
+    mgen = torch.Generator().manual_seed(SEED + 15)
+
+    def with_model(cfg, **kw):
+        return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
+
+    def mode_agents(cfg, share=None):
+        """(score, energy, scale) agents of cfg: weights from the phase's
+        generator, or ``share``'s."""
+        agents = (PoseAgent(cfg, "score", device=dev), PoseAgent(cfg, "energy", device=dev),
+                  ScaleAgent(cfg, device=dev))
+        for i, a in enumerate(agents):
+            if share is None:
+                randomize(a.model, mgen)
+            else:
+                a.model.load_state_dict(share[i].model.state_dict())
+        s = agents[0]
+        if s.provider is not None:
+            if share is None:
+                randomize(s.provider.vit, mgen)
+            else:
+                s.provider.vit.load_state_dict(share[0].provider.vit.state_dict())
+        return agents
+
+    def mode_request_counts(label, dtype):
+        want = dict.fromkeys(_cuda.KERNELS, 0)
+        if label == "pointnet":  # the module encoders launch no kernel
+            want.update(fused_rk4=1)
+        elif label.startswith("pointnet_and_pointnet2"):  # PointNet2ClsMSG, score and energy
+            want.update(fps=8, ball_query=16, fused_rk4=1)
+        else:  # a flagship request
+            want = expected_counts("pointwise", dtype)
+        return want
+
+    def mode_request(label, agents, dtype):
+        """One request (B objects, K candidates, STEPS RK4 steps from T0,
+        energies, aggregation in the pose mode, ScaleNet), its checks and
+        its line; returns whether it passed."""
+        s, e, sc = agents
+        m = s.cfg.model
+        D = m.pose_dim
+        pts = object_clouds(mgen, dev, B, N)
+        raw = {"pts": pts, "pts_center": pts.mean(1)}
+        if m.dino == "pointwise":
+            raw["roi_rgb"] = torch.randn(B, S, S, 3, generator=mgen).to(dev)
+            raw["roi_xs"] = torch.randint(0, S, (B, N), generator=mgen).to(dev)
+            raw["roi_ys"] = torch.randint(0, S, (B, N), generator=mgen).to(dev)
+        prior = s.sde.prior_sample((B * K, D), T=T0, generator=mgen).to(dev)
+
+        def run():
+            batch = s.with_image_features(raw)
+            feats = s.extract_features(batch)
+            poses = s.sample_candidates(batch, repeat_num=K, T0=T0, method="fixed",
+                                        num_steps=STEPS, features=feats, prior=prior)
+            en = e.get_energy(batch, poses, fixed_t=1e-5)
+            ev = s.cfg.eval
+            agg = aggregate_candidates(poses, en, retain_ratio=ev.retain_ratio,
+                                       clustering=ev.clustering, eps=ev.clustering_eps,
+                                       minpts_ratio=ev.clustering_minpts_ratio,
+                                       pose_mode=m.pose_mode)
+            return feats, poses, en, agg, sc.predict(feats[0], agg["rotation"])
+
+        (feats, poses, en, agg, lengths), ms, counts = counted(run)
+        per_modes.append(counts)
+        R = agg["rotation"]
+        eye = torch.eye(3, device=dev).expand_as(R)
+        orth = float((R.transpose(1, 2) @ R - eye).abs().max())
+        det = float((torch.linalg.det(R) - 1).abs().max())
+        unit = (float((poses[..., :4].norm(dim=-1) - 1).abs().max())
+                if m.pose_mode.startswith("quat") else 0.0)
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                     (feats[0], poses, en, R, agg["translation"], lengths))
+        shapes = [tuple(feats[0].shape), tuple(poses.shape), tuple(en.shape),
+                  tuple(lengths.shape)]
+        f_plain, _ = s.extract_features(s.with_image_features(raw, plain=True), plain=True)
+        p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, method="fixed", num_steps=STEPS,
+                                      plain=True, features=feats, prior=prior)
+        f_err, p_err = rel_err(feats[0], f_plain), max_err(poses, p_plain)
+        # the request phase's bounds (dino='none' for the PointNet encoders)
+        flag = m.dino == "pointwise"
+        if dtype == "float32":
+            f_tol, p_tol = (2e-4 if flag else 1e-4), 5e-4
+        else:
+            f_tol, p_tol = (5e-2 if flag else 2e-2), 2e-2
+        want = mode_request_counts(label, dtype)
+        good = (counts == want and finite and orth < 1e-4 and det < 1e-4 and unit <= 1e-5
+                and shapes == [(B, 1024), (B, K, D), (B, K, 2), (B, 3)]
+                and f_err <= f_tol and p_err <= p_tol)
+        emit({"phase": "modes", "run": label, "pose_mode": m.pose_mode,
+              "regression_head": m.regression_head, "pts_encoder": m.pts_encoder,
+              "dino": m.dino, "dtype": dtype, "ok": good, "request_ms": ms,
+              "launches": counts, "expected": want, "finite": finite,
+              "orthonormality_err": orth, "det_err": det, "quaternion_unit_err": unit,
+              "shapes": shapes, "feature_err_over_max": f_err, "feature_tol": f_tol,
+              "candidates_max_abs_err": p_err, "candidates_tol": p_tol})
+        return good
+
+    def segmsg_checks():
+        """PointNet2SegMSG at the default config (four grouped stages, FP
+        widths 64-512) on B clouds of N points: one eval forward and one
+        train-mode forward with backward, each with exactly FPS 4 and ball
+        query 8 launches, their indices equal to the plain versions' on the
+        same inputs, the logits within the feature bound of the plain run."""
+        from genpose2_tpu_torch.models.pointnet2 import PointNet2SegMSG
+
+        seg = PointNet2SegMSG(PointNet2Config()).to(dev)
+        randomize(seg, mgen)
+        pts = object_clouds(mgen, dev, B, N)
+        recorded = {"kernel": [], "plain": []}
+
+        def recording(fn, key):
+            def run(*a):
+                out = fn(*a)
+                recorded[key].append(out)
+                return out
+            return run
+
+        def train_pass(plain):
+            with torch.enable_grad():
+                out = seg(pts, True, torch.Generator(dev).manual_seed(SEED + 3), plain)
+                out.sum().backward()
+            grads = [p.grad.clone() for p in seg.parameters()]
+            seg.zero_grad(set_to_none=True)
+            return out.detach(), grads
+
+        saved = {n: getattr(pointnet2_module, n) for n in
+                 ("furthest_point_sample", "fps_plain", "ball_query", "ball_query_plain")}
+        pointnet2_module.furthest_point_sample = recording(furthest_point_sample, "kernel")
+        pointnet2_module.fps_plain = recording(fps_plain, "plain")
+        pointnet2_module.ball_query = recording(ball_query, "kernel")
+        pointnet2_module.ball_query_plain = recording(ball_query_plain, "plain")
+        try:
+            out_e, ms_e, c_e = counted(lambda: seg(pts, False))
+            plain_e = seg(pts, False, plain=True)
+            (out_t, g_t), ms_t, c_t = counted(lambda: train_pass(False))
+            plain_t, g_p = train_pass(True)
+        finally:
+            for n, f in saved.items():
+                setattr(pointnet2_module, n, f)
+        per_modes.extend([c_e, c_t])
+        want = dict.fromkeys(_cuda.KERNELS, 0)
+        want.update(fps=4, ball_query=8)
+        k_, p_ = recorded["kernel"], recorded["plain"]
+        idx_equal = len(k_) == len(p_) == 24 and all(torch.equal(a, b) for a, b in zip(k_, p_))
+        errs = {"eval": rel_err(out_e, plain_e), "train": rel_err(out_t, plain_t),
+                "train_grads": max(max_err(a, b) for a, b in zip(g_t, g_p))
+                / max(float(b.abs().max()) for b in g_p)}
+        # the same float32 work on the same indices: the dino='none'
+        # feature bound (1e-4 of the largest) for the logits; the gradients
+        # the train phase's 5e-4 of the largest
+        good = (c_e == want and c_t == want and idx_equal and errs["eval"] <= 1e-4
+                and errs["train"] <= 1e-4 and errs["train_grads"] <= 5e-4
+                and tuple(out_e.shape) == (B, N, 1) and bool(torch.isfinite(out_e).all())
+                and bool(torch.isfinite(out_t).all()))
+        emit({"phase": "modes", "run": "segmsg", "ok": good, "eval_ms": ms_e,
+              "train_forward_backward_ms": ms_t, "launches": {"eval": c_e, "train": c_t},
+              "expected": want, "indices_equal": idx_equal, "index_calls": len(k_),
+              "err_over_max": errs, "tol": {"eval": 1e-4, "train": 1e-4, "train_grads": 5e-4}})
+        return good
+
+    RANK_MODES = 5
+
+    def mode_batch(cfg, count=B):
+        """Clouds, ground-truth poses in the config's pose mode (a random
+        rotation, a few cm of translation), and the image inputs its dino
+        mode reads (256-px N(0, 1) crops)."""
+        m = cfg.model
+        q, _ = torch.linalg.qr(torch.randn(count, 3, 3, generator=mgen))
+        q = q * torch.sign(torch.linalg.det(q))[:, None, None]
+        gt = torch.cat([get_pose_representation(q, m.pose_mode),
+                        torch.randn(count, 3, generator=mgen) * 0.05], -1)
+        b = {"pts": object_clouds(mgen, dev, count), "zero_mean_gt_pose": gt.to(dev)}
+        if m.dino != "none":
+            b["roi_rgb"] = torch.randn(count, S, S, 3, generator=mgen).to(dev)
+        if m.dino == "pointwise":
+            b["roi_xs"] = torch.randint(0, S, (count, N), generator=mgen).to(dev)
+            b["roi_ys"] = torch.randint(0, S, (count, N), generator=mgen).to(dev)
+        if m.dino == "global":
+            d = torch.randn(count, 3, generator=mgen)
+            b["roi_center_dir"] = (d / d.norm(dim=-1, keepdim=True)).to(dev)
+        return b
+
+    def mode_train(label, cfg, agent_type="score", teacher=None, ranking=False):
+        """Three steps at B (their launches exact, the median ms), then one
+        step's loss and gradients with the kernels against the plain versions
+        on the same batch (its image features attached once) and seed."""
+        agent = PoseAgent(cfg, agent_type, device=dev)
+        randomize(agent.model, mgen)
+        if agent.provider is not None:
+            randomize(agent.provider.vit, mgen)
+        state = agent.init_state()
+
+        def batch_of():
+            b = mode_batch(cfg)
+            if ranking:
+                b["candidate_poses"] = (torch.randn(B, RANK_MODES, cfg.model.pose_dim,
+                                                    generator=mgen) * 0.5).to(dev)
+                b["candidate_metrics"] = torch.rand(B, RANK_MODES, 2, generator=mgen).to(dev)
+            return b
+
+        want = train_counts(cfg.model.dino != "none")
+        if teacher is not None:  # the teacher's fast encoder over the student's ViT layers
+            want.update(fps=5, ball_count=1, fused_sa_stage=4, relpe_attention=4,
+                        residual_layernorm=8)
+        steps = []
+        for i in range(3):
+            batch = batch_of()
+            g = torch.Generator(device=dev).manual_seed(SEED + 20 + i)
+            if teacher is None:
+                (_, m), ms, counts = counted(lambda: agent.train_step(state, batch, g))
+            else:
+                (_, m), ms, counts = counted(
+                    lambda: agent.train_step_distilled(state, teacher, batch, g))
+            per_modes.append(counts)
+            steps.append({"ms": ms, "loss": float(m["loss"]), "launches": counts,
+                          "ok": counts == want and math.isfinite(float(m["loss"]))})
+        batch = agent.with_image_features(batch_of())
+        l_k, _, g_k, _ = agent.loss_and_grads(state, batch, torch.Generator(dev).manual_seed(7),
+                                              teacher=teacher)
+        l_p, _, g_p, _ = agent.loss_and_grads(state, batch, torch.Generator(dev).manual_seed(7),
+                                              plain=True, teacher=teacher)
+        ks = [g for g in g_k.values() if g is not None]
+        ps = [g for g in g_p.values() if g is not None]
+        l_k, l_p = float(l_k.detach()), float(l_p.detach())
+        # the train phase's bounds (the distilled step's teacher runs its
+        # fast encoder, whose float32 kernels differ from plain in summation
+        # order only)
+        cmp = {"loss": [l_k, l_p], "loss_rel": abs(l_k - l_p) / abs(l_p),
+               "grad_err_over_max": max(max_err(a, b) for a, b in zip(ks, ps))
+               / max(float(g.abs().max()) for g in ps),
+               "tolerance": {"loss_rel": 1e-5, "grad_err_over_max": 5e-4}}
+        warm = sorted(st_["ms"] for st_ in steps)
+        good = (all(st_["ok"] for st_ in steps) and state.step == 3
+                and cmp["loss_rel"] <= 1e-5 and cmp["grad_err_over_max"] <= 5e-4)
+        emit({"phase": "modes", "run": f"train_{label}", "ok": good, "batch": B,
+              "repeat_num": cfg.train.repeat_num, "optimizer": cfg.train.optimizer,
+              "steps": steps, "expected": want, "step_ms_median": warm[1],
+              "kernel_vs_plain": cmp})
+        return good, (agent, state)
+
+    @phase("modes")
+    def modes():
+        t0 = time.perf_counter()
+        ok = True
+        # flagship requests in the other pose modes (the quaternion modes'
+        # R_and_T heads: D = 7, H1 = 512; euler_xyz's RT: D = 6, H1 = 512)
+        quat = None
+        for pose_mode, head, dtype in (("quat_wxyz", "R_and_T", "bfloat16"),
+                                       ("quat_wxyz", "R_and_T", "float32"),
+                                       ("quat_xyzw", "R_and_T", "bfloat16"),
+                                       ("euler_xyz", "RT", "bfloat16")):
+            cfg = with_model(flagship_config(dtype), pose_mode=pose_mode, regression_head=head)
+            agents = mode_agents(cfg, quat if pose_mode == "quat_wxyz" else None)
+            if pose_mode == "quat_wxyz":
+                quat = agents
+            ok = mode_request(f"{pose_mode}_{head}", agents, dtype) and ok
+        quat = None
+        # dino='none' requests with the PointNet encoders
+        for enc, dtype in (("pointnet", "float32"), ("pointnet_and_pointnet2", "float32"),
+                           ("pointnet_and_pointnet2", "bfloat16")):
+            cfg = with_model(none_config(dtype), pts_encoder=enc)
+            ok = mode_request(enc if enc == "pointnet" else f"{enc}_{dtype}",
+                              mode_agents(cfg), dtype) and ok
+        ok = segmsg_checks() and ok
+        # train steps (scripts/bench_train.py's float32 setting: float32
+        # encoders, bf16 backbone)
+        base = train_config("float32")
+        good, _ = mode_train("edm_decoder", base.replace(
+            sde=dataclasses.replace(base.sde, mode="edm")))
+        ok = ok and good
+        good, teacher = mode_train("score_teacher", base)
+        ok = ok and good
+        good, _ = mode_train("distilled", base, teacher=teacher)
+        ok = ok and good
+        teacher = None
+        glob = with_model(base, dino="global")
+        for agent_type, ranking in (("score", False), ("energy", True)):
+            good, _ = mode_train(f"global_{agent_type}" + ("_ranking" if ranking else ""), glob,
+                                 agent_type, ranking=ranking)
+            ok = ok and good
+        good, _ = mode_train("quat_wxyz", with_model(base, pose_mode="quat_wxyz",
+                                                     regression_head="R_and_T"))
+        ok = ok and good
+        good, _ = mode_train("pointnet_and_pointnet2", with_model(
+            base, dino="none", backbone="none", pts_encoder="pointnet_and_pointnet2"))
+        ok = ok and good
+        emit({"phase": "modes", "ok": ok, "seconds": time.perf_counter() - t0})
+        if not ok:
+            raise AssertionError("a modes check failed")
+
+    modes()
+
     # ------------------------------------------------------------------ timing
     table = []
 
@@ -2485,6 +2824,14 @@ def main():
                 key = f"{k}.bf16" if k == "vit_attention" else k
                 launches[key] = launches.get(key, 0) + v
 
+        # the modes phase's counted runs: its float32-setting train steps
+        # run the bf16 backbone (as the train phase's), its requests in
+        # their dtype's column
+        modes_launches = {}
+        for counts in per_modes:
+            for k, v in counts.items():
+                modes_launches[k] = modes_launches.get(k, 0) + v
+
         def entry(name, source, replaces, ms, plain_ms, nbytes, ops, library_ms=None, **extra):
             b, by = bound_ms(nbytes, ops)
             r = results.get(name, {})
@@ -2492,6 +2839,8 @@ def main():
                           "launches": launches.get(name, 0),
                           "eval_launches_per_batch": eval_launches.get(name, 0),
                           "rk45_launches_per_call": rk45_launches.get(name, 0),
+                          "modes_launches": modes_launches.get(name.split(".")[0], 0)
+                          if not name.endswith(".bf16") else 0,
                           "max_abs_err": r.get("max_abs_err"),
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                           "library_ms": library_ms, **extra})
@@ -2654,29 +3003,45 @@ def main():
                             "fused_group_mlp_pool": "genpose2_tpu/ops/fused_sa.py:121"}[name]
                 entry(name + sfx, csrc + "fused_sa.cu", replaces, sum(t_[key]),
                       sum(t_[key + "_plain"]), nb, ops)
-        for dtype, name in (("float32", "fused_rk4"), ("bfloat16", "fused_rk4.bf16")):
-            x0, w, sde = results[name]["args"]
-            R, D = x0.shape
+        def rk4_cost(w, rows, D, steps, dtype):
+            """(bytes, ops) of one call: x in and out, the static rows, the
+            weights once, the time tables; 4 stages a step of the four
+            products over every row."""
             H1 = w["static"].shape[1]
             P1 = w["pose_mlp"]["Dense_0"]["kernel"].shape[1]
             P2 = w["pose_mlp"]["Dense_1"]["kernel"].shape[1]
             macs = D * P1 + P1 * P2 + P2 * H1 + H1 * D
             esize = 2 if dtype == "bfloat16" else 4
-            nbytes = R * D * 8 + R * H1 * 4 + macs * esize + STEPS * (3 * H1 + 7) * 4
+            nbytes = rows * D * 8 + rows * H1 * 4 + macs * esize + steps * (3 * H1 + 7) * 4
+            return nbytes, {mm_type(dtype): steps * 4 * rows * 2 * macs}
+
+        def rk4_times(x0, w, sde, dtype):
+            """(ms, plain ms, bound) at the request's shape, and (ms, bound) at
+            a tracking call's: the first TRACK_R rows, TRACK_STEPS steps."""
+            R, D = x0.shape
             ms = cuda_ms(lambda: fused_rk4_integrate(x0, w, sde, T0, STEPS, dtype), 5)
             pms = cuda_ms(lambda: fused_rk4_plain(x0, w, sde, T0, STEPS, dtype), 1)
-            # a tracking call's shape: the first TRACK_R rows, TRACK_STEPS steps
             x0t, wt = x0[:TRACK_R].contiguous(), rk4_rows(w, TRACK_R)
             ms_t = cuda_ms(lambda: fused_rk4_integrate(x0t, wt, sde, TRACK_T0, TRACK_STEPS,
                                                        dtype), 5)
-            nbytes_t = (TRACK_R * D * 8 + TRACK_R * H1 * 4 + macs * esize
-                        + TRACK_STEPS * (3 * H1 + 7) * 4)
-            b_t, _ = bound_ms(nbytes_t, {mm_type(dtype): TRACK_STEPS * 4 * TRACK_R * 2 * macs})
-            per_stage[name] = {"kernel_ms": ms, "tracking_ms": ms_t, "tracking_bound_ms": b_t}
-            entry(name, csrc + "ode_rk4.cu", "genpose2_tpu/ops/ode_rk4.py:233", ms, pms,
-                  nbytes, {mm_type(dtype): STEPS * 4 * R * 2 * macs},
+            b_t, _ = bound_ms(*rk4_cost(w, TRACK_R, D, TRACK_STEPS, dtype))
+            return ms, pms, rk4_cost(w, R, D, STEPS, dtype), ms_t, b_t
+
+        for dtype, name in (("float32", "fused_rk4"), ("bfloat16", "fused_rk4.bf16")):
+            x0, w, sde = results[name]["args"]
+            ms, pms, cost, ms_t, b_t = rk4_times(x0, w, sde, dtype)
+            # the pose modes' widths (D = 7 and 6, H1 = 512), same shapes
+            widths = {}
+            for D in (7, 6):
+                x0m, wm, sdem = rk4_modes_in[(D, dtype)]
+                ms_m, pms_m, cost_m, ms_mt, b_mt = rk4_times(x0m, wm, sdem, dtype)
+                widths[f"D{D}"] = {"ms": ms_m, "plain_ms": pms_m, "bound_ms": bound_ms(*cost_m)[0],
+                                   "tracking_ms": ms_mt, "tracking_bound_ms": b_mt}
+            per_stage[name] = {"kernel_ms": ms, "tracking_ms": ms_t, "tracking_bound_ms": b_t,
+                               "pose_mode_widths": widths}
+            entry(name, csrc + "ode_rk4.cu", "genpose2_tpu/ops/ode_rk4.py:233", ms, pms, *cost,
                   tracking={"R": TRACK_R, "steps": TRACK_STEPS, "T0": TRACK_T0, "ms": ms_t,
-                            "bound_ms": b_t})
+                            "bound_ms": b_t}, pose_mode_widths=widths)
 
         # rel-PE: the four stage launches of one encoder forward, at a
         # request's batch B and a frame call's N_OBJ. Bias per (query, key)
@@ -2874,7 +3239,10 @@ def main():
                       "the kernel's own time by torch.profiler, queued_ms for a kernel that "
                       "profiler_misses names (ms: events around wrapper calls); fps: 1,024 -> 512 points, per_pick_us the device time of one "
                       "pick, frame_batch at a frame call's 12 objects; fused_rk4 "
-                      "entries' tracking: the kernel at a tracking call's shape; "
+                      "entries' tracking: the kernel at a tracking call's shape, "
+                      "pose_mode_widths: at D = 7 and 6 (H1 = 512), both shapes; "
+                      "modes_launches: summed over the modes phase's counted runs (its "
+                      "requests' bf16 launches too, its train steps' bf16 backbone); "
                       "residual_layernorm: its eight launches; queued_ms (the LayerNorm and "
                       "ball_count entries, the long keys): the kernels alone, CUDA events "
                       "around calls queued behind a busy-wait; ball_count's "

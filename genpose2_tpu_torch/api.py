@@ -142,6 +142,10 @@ class GenPose2:
             generator = torch.Generator(self.device).manual_seed(0)
         batch = process_batch(raw, self.cfg.model.pose_mode, self.device)
         if tracking and prev_pose is not None:
+            if self.cfg.model.pose_mode != "rot_matrix":
+                raise ValueError("tracking warm-starts from prev_pose, the 9-D rot_matrix pose "
+                                 "(as in the JAX package): it needs pose_mode='rot_matrix', "
+                                 f"not {self.cfg.model.pose_mode!r}")
             T0 = self.tracking_T0
             init_x = torch.as_tensor(prev_pose, dtype=torch.float32, device=self.device).clone()
             init_x[..., -3:] -= batch["pts_center"]
@@ -161,7 +165,8 @@ class GenPose2:
         ev = self.cfg.eval
         agg = aggregate_candidates(poses, energy, retain_ratio=ev.retain_ratio,
                                    clustering=ev.clustering, eps=ev.clustering_eps,
-                                   minpts_ratio=ev.clustering_minpts_ratio)
+                                   minpts_ratio=ev.clustering_minpts_ratio,
+                                   pose_mode=self.cfg.model.pose_mode)
         if self.scale_agent is not None:
             lengths = self.scale_agent.predict(feats[0], agg["rotation"])
         else:

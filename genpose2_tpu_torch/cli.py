@@ -11,7 +11,9 @@ The flags are the JAX CLI's, plus ``--device`` (the card unless it says
 
 ``--source`` is ``Omni6DPose`` (frames on disk, ``data/omni6dpose.py``),
 ``xyzibd`` (BOP scenes, ``data/xyzibd.py``) or ``synthetic``
-(``data/synthetic.py``, ``--steps_per_epoch`` batches an epoch). A file
+(``data/synthetic.py``, ``--steps_per_epoch`` batches an epoch, their poses
+in ``--pose_mode``; the JAX CLI's synthetic batches stay 9-D whatever the
+mode). A file
 source's epoch is one pass of its ``DataLoader``, and the trainer counts
 that pass's steps as its epoch (the JAX CLI keeps ``--steps_per_epoch``
 there). ``--data_parallel`` other than 1 and ``--multihost`` raise until
@@ -141,14 +143,19 @@ def make_loader_fn(cfg: Config, mode: str, agent_type: str = "score", device=Non
     if cfg.data.source == "synthetic":
         from genpose2_tpu_torch.data.synthetic import SyntheticPoseData
         from genpose2_tpu_torch.so3.noise import add_noise_to_R
+        from genpose2_tpu_torch.so3.rotations import get_pose_representation
 
         data = SyntheticPoseData(num_points=cfg.data.num_points)
         dev = resolve_device(device)
+        pose_mode = cfg.model.pose_mode
 
         def synthetic_fn(epoch, steps_per_epoch=50):
             for i in range(steps_per_epoch):
                 g = torch.Generator(dev).manual_seed(epoch * 1000 + i)
                 b = data.batch(g, cfg.train.batch_size)
+                if pose_mode != "rot_matrix":
+                    rot = get_pose_representation(b["gt_rotation"], pose_mode)
+                    b["zero_mean_gt_pose"] = torch.cat([rot, b["zero_mean_gt_pose"][:, -3:]], -1)
                 if agent_type == "scale":
                     S = cfg.train.scale_batch_size
                     B = b["gt_rotation"].shape[0]

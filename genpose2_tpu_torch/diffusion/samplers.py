@@ -228,9 +228,14 @@ def ode_sampler(
 
 
 def _mid_normalize(x: torch.Tensor, pose_mode: str) -> torch.Tensor:
-    """The rotation's two axes scaled to unit length (rot_matrix)."""
-    if pose_mode != "rot_matrix":
-        raise NotImplementedError(f"pose_mode {pose_mode!r} is not ported yet (see ROADMAP.md)")
+    """The corrector's renormalisation: the quaternion scaled to unit length,
+    Euler angles as they are, else (rot_matrix, euler_xyz_sx_cx) the first two
+    3-vectors scaled to unit length each."""
+    if pose_mode in ("quat_wxyz", "quat_xyzw"):
+        return torch.cat([x[:, :4] / torch.linalg.norm(x[:, :4], dim=-1, keepdim=True),
+                          x[:, 4:]], dim=-1)
+    if pose_mode == "euler_xyz":
+        return x
     a1 = x[:, :3] / torch.linalg.norm(x[:, :3], dim=-1, keepdim=True)
     a2 = x[:, 3:6] / torch.linalg.norm(x[:, 3:6], dim=-1, keepdim=True)
     return torch.cat([a1, a2, x[:, 6:]], dim=-1)

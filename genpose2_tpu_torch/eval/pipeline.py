@@ -100,7 +100,8 @@ class SingleFrameEvaluator:
         ev = self.cfg.eval
         return aggregate_candidates(poses, energy, retain_ratio=ev.retain_ratio,
                                     clustering=ev.clustering, eps=ev.clustering_eps,
-                                    minpts_ratio=ev.clustering_minpts_ratio)
+                                    minpts_ratio=ev.clustering_minpts_ratio,
+                                    pose_mode=self.cfg.model.pose_mode)
 
     def _lengths(self, batch, R, t, pts_feat=None):
         if self.scale_fn is not None:
@@ -118,7 +119,7 @@ class SingleFrameEvaluator:
     def inference_score(self, batches: List[dict], generator=None,
                         priors: Optional[Sequence[torch.Tensor]] = None,
                         plain: bool = False) -> List[np.ndarray]:
-        """Candidate poses (B, K, 9), camera frame, one array per batch."""
+        """Candidate poses (B, K, D), camera frame, one array per batch."""
         path = self._path("pred_pose.npz")
         if _stage(path):
             return _load_list(path)

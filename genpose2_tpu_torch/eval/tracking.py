@@ -30,6 +30,10 @@ class PoseTracker:
     def __init__(self, cfg: Config, score_agent, energy_agent=None,
                  scale_fn: Optional[Callable] = None, T0: float = 0.25, num_steps: int = 100,
                  *, score_state=None, energy_state=None):
+        if cfg.model.pose_mode != "rot_matrix":
+            raise ValueError("the tracker's state is the 9-D rot_matrix pose (as in the JAX "
+                             "package): tracking needs pose_mode='rot_matrix', not "
+                             f"{cfg.model.pose_mode!r}")
         self.cfg = cfg
         self.score_agent = score_agent
         self.score_state = score_state

@@ -148,6 +148,17 @@ class SharedMLP(nn.Module):
         return x
 
 
+class Conv1x1(nn.Conv1d):
+    """A 1x1 ``Conv1d`` (the reference layout: weight (out, in, 1), bias)
+    applied to channels-last rows, (..., in) -> (..., out), float32."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__(c_in, c_out, kernel_size=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight[:, :, 0].t() + self.bias
+
+
 def mm(a: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """a @ w with both operands rounded to ``dt``, as float32. A bf16 product
     is a bf16 matmul (float32 sums, the result rounded to bf16 as torch

@@ -1,6 +1,7 @@
-"""PointNet++ MSG classification encoders (port of
-genpose2_tpu/models/pointnet2.py:SetAbstractionMSG / PointNet2ClsMSG /
-PointNet2ClsMSGFus).
+"""PointNet++ MSG encoders (port of genpose2_tpu/models/pointnet2.py:
+SetAbstractionMSG, the classification encoders PointNet2ClsMSG and
+PointNet2ClsMSGFus, and the segmentation encoder PointNet2SegMSG with its
+FeaturePropagation).
 
 ``forward`` is the module form that training runs: FPS and ball query per
 stage (the FPS and ball-query kernels on the card), train-mode BatchNorms,
@@ -29,6 +30,7 @@ from genpose2_tpu_torch.models.layers import (SharedMLP, batch_norm, dropout,
 from genpose2_tpu_torch.ops.ball_query import ball_query, ball_query_plain
 from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
 from genpose2_tpu_torch.ops.grouping import gather_points, group_points
+from genpose2_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from genpose2_tpu_torch.ops.ode_rk4 import compute_dtype_of
 
 
@@ -155,3 +157,93 @@ class PointNet2ClsMSGFus(PointNet2ClsMSG):
             features = self.transformer_blocks[k](features, bias, train, cfg.dropout, generator)
             xyz = new_xyz
         return features.squeeze(1)
+
+
+class FeaturePropagation(nn.Module):
+    """Feature propagation (upsampling) of the segmentation encoder: the
+    coarse features interpolated to the fine points by inverse distance over
+    their three nearest coarse points, the fine points' own features
+    appended, then a float32 SharedMLP. State dict: ``mlp.layer{i}``."""
+
+    def __init__(self, in_channels: int, mlp: Sequence[int]):
+        super().__init__()
+        self.mlp = SharedMLP((in_channels,) + tuple(mlp))
+        self.out_channels = mlp[-1]
+
+    def forward(self, unknown: torch.Tensor, known: Optional[torch.Tensor],
+                unknown_feats: Optional[torch.Tensor], known_feats: torch.Tensor,
+                train: bool) -> torch.Tensor:
+        """unknown (B, n, 3), known (B, m, 3) or None (``known_feats`` (B, 1,
+        C2) then goes to every point), unknown_feats (B, n, C1) or None,
+        known_feats (B, m, C2) -> (B, n, mlp[-1])."""
+        if known is not None:
+            dist, idx = three_nn(unknown, known)
+            recip = 1.0 / (dist + 1e-8)
+            weight = recip / torch.sum(recip, dim=2, keepdim=True)
+            interp = three_interpolate(known_feats, idx, weight)
+        else:
+            interp = known_feats.expand(known_feats.shape[0], unknown.shape[1],
+                                        known_feats.shape[-1])
+        if unknown_feats is not None:
+            interp = torch.cat([interp, unknown_feats], dim=-1)
+        return self.mlp(interp, train)
+
+
+class PointNet2SegMSG(nn.Module):
+    """The segmentation-style encoder: ``len(fp_mlps)`` SA stages of ``cfg``
+    down, as many feature propagations up, then the per-point classification
+    tail (a SharedMLP layer and dropout per ``cls_fc`` width, then a Linear
+    to one logit). Its FPS and ball queries are the kernels' on the card.
+
+    State dict: ``SA_modules.{k}`` (as PointNet2ClsMSG), ``FP_modules.{i}``
+    (FeaturePropagation; module i lifts level i + 1 to level i),
+    ``cls_fc.{j}`` (SharedMLP) and ``cls_out`` (Linear). No reference
+    checkpoint of this encoder exists; the names follow the reference's
+    module names where it has them."""
+
+    def __init__(self, cfg: PointNet2Config, in_channels: int = 0,
+                 fp_mlps: Sequence[Sequence[int]] = ((64, 64), (128, 128), (256, 256),
+                                                     (512, 512)),
+                 cls_fc: Sequence[int] = (128,), dropout: float = 0.5):
+        super().__init__()
+        self.cfg, self.dropout = cfg, dropout
+        widths, mods = [in_channels], []
+        for k in range(len(fp_mlps)):
+            sa = SetAbstractionMSG(widths[-1], cfg.npoints[k], cfg.radii[k], cfg.nsamples[k],
+                                   cfg.mlps[k], cfg.use_xyz)
+            mods.append(sa)
+            widths.append(sa.out_channels)
+        self.SA_modules = nn.ModuleList(mods)
+        fps = [None] * len(fp_mlps)
+        coarse = widths[-1]
+        for i in range(len(fp_mlps), 0, -1):
+            fps[i - 1] = FeaturePropagation(coarse + widths[i - 1], fp_mlps[i - 1])
+            coarse = fps[i - 1].out_channels
+        self.FP_modules = nn.ModuleList(fps)
+        cls = []
+        for f in cls_fc:
+            cls.append(SharedMLP((coarse, f)))
+            coarse = f
+        self.cls_fc = nn.ModuleList(cls)
+        self.cls_out = nn.Linear(coarse, 1)
+
+    def forward(self, pointcloud: torch.Tensor, train: bool,
+                generator: Optional[torch.Generator] = None, plain: bool = False):
+        """pointcloud (B, N, 3 + C) -> per-point logits (B, N, 1) float32. The
+        SA stages run in cfg.compute_dtype, the rest in float32; in train mode
+        the tail's dropout draws from ``generator``. ``plain`` runs the plain
+        versions of the FPS and ball-query kernels."""
+        dt = compute_dtype_of(self.cfg.compute_dtype)
+        l_xyz = [pointcloud[..., :3].float()]
+        l_feats = [pointcloud[..., 3:].float() if pointcloud.shape[-1] > 3 else None]
+        for sa in self.SA_modules:
+            new_xyz, feats = sa(l_xyz[-1], l_feats[-1], train, dt, plain)
+            l_xyz.append(new_xyz)
+            l_feats.append(feats)
+        for i in range(len(self.FP_modules), 0, -1):
+            l_feats[i - 1] = self.FP_modules[i - 1](l_xyz[i - 1], l_xyz[i], l_feats[i - 1],
+                                                    l_feats[i], train)
+        h = l_feats[0]
+        for mlp in self.cls_fc:
+            h = dropout(mlp(h, train), self.dropout, generator, train)
+        return self.cls_out(h)

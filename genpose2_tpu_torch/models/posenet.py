@@ -1,19 +1,29 @@
 """Composition root: point encoder (+ DINO fusion) + score or energy net (port
-of genpose2_tpu/models/posenet.py:GFObjectPose, for ``pts_encoder='pointnet2'``
-with ``dino='none'``, ``'pointwise'`` or ``'global'``).
+of genpose2_tpu/models/posenet.py:GFObjectPose).
 
-With dino='global' the point encoder is ``PointNet2ClsMSG`` on the cloud
-alone, run in its module form (the JAX package's route for that mode), and
-the heads also take the global rgb feature: the backbone's class token
-concatenated with ``encode_axes(roi_center_dir)``, ``dino_dim +
-global_embedding_dim`` wide.
+The point encoders, as the JAX package accepts them:
+- ``pts_encoder='pointnet2'`` with ``dino`` 'none', 'pointwise' or
+  'global';
+- ``'pointnet'`` (PointNetFeat on the cloud) and ``'pointnet_and_pointnet2'``
+  (PointNetFeat and PointNet2ClsMSG on the cloud, their features joined by a
+  1024-wide Linear + ReLU) with ``dino`` 'none' or 'global'. With
+  dino='pointwise' the JAX package fails on both (it feeds 3 + dino_dim
+  channels to the 3-channel T-Net, or has no ``pts_encoder``), and the port
+  raises.
 
-State dict layout (reference): ``pts_encoder.*`` and ``pose_score_net.*``
+With dino='global' the heads also take the global rgb feature: the
+backbone's class token concatenated with ``encode_axes(roi_center_dir)``,
+``dino_dim + global_embedding_dim`` wide. Eval runs the fast encoders of
+models/fast_encoder.py for pointnet2 with dino 'none' or 'pointwise', and
+the encoders' module forms otherwise, as the JAX package routes them.
+
+State dict layout (reference): ``pts_encoder.*`` (or, for
+'pointnet_and_pointnet2', ``pts_pointnet_encoder.*``,
+``pts_pointnet2_encoder.*`` and ``fusion_layer``) and ``pose_score_net.*``
 (for both agent types and the score agent's EDM decoder), plus
-``img_encoder.*`` with ``dino='pointwise'`` (a
-global model holds none: the JAX package creates its parameters only where
-the module runs). The frozen backbone is not part of it: the agent owns it
-(models/provider.py).
+``img_encoder.*`` with ``dino='pointwise'`` (a global model holds none: the
+JAX package creates its parameters only where the module runs). The frozen
+backbone is not part of it: the agent owns it (models/provider.py).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from genpose2_tpu_torch.config import ModelConfig
 from genpose2_tpu_torch.models.energynet import PoseEnergyNet
 from genpose2_tpu_torch.models.fast_encoder import fast_cls_forward, fast_fus_forward
 from genpose2_tpu_torch.models.img_encoder import ImgEncoder
+from genpose2_tpu_torch.models.pointnet import PointNetFeat
 from genpose2_tpu_torch.models.pointnet2 import PointNet2ClsMSG, PointNet2ClsMSGFus
 from genpose2_tpu_torch.models.scorenet import PoseDecoderNet, PoseScoreNet
 from genpose2_tpu_torch.so3.rotations import encode_axes
@@ -39,10 +50,14 @@ class GFObjectPose(nn.Module):
     def __init__(self, cfg: ModelConfig, marginal_std_fn: Callable, agent_type: str = "score",
                  use_decoder: bool = False):
         super().__init__()
-        if cfg.dino not in ("none", "pointwise", "global") or cfg.pts_encoder != "pointnet2":
-            raise NotImplementedError(
-                f"dino={cfg.dino!r}, pts_encoder={cfg.pts_encoder!r}: the port serves only "
-                "pts_encoder='pointnet2' so far (see ROADMAP.md)")
+        if cfg.dino not in ("none", "pointwise", "global"):
+            raise NotImplementedError(f"dino={cfg.dino!r}")
+        if cfg.pts_encoder not in ("pointnet", "pointnet2", "pointnet_and_pointnet2"):
+            raise NotImplementedError(f"pts_encoder={cfg.pts_encoder!r}")
+        if cfg.dino == "pointwise" and cfg.pts_encoder != "pointnet2":
+            raise ValueError(f"pts_encoder={cfg.pts_encoder!r} does not take dino='pointwise' "
+                             "(the per-point DINO feature feeds only the pointnet2 Fus "
+                             "encoder); use dino 'none' or 'global'")
         self.cfg = cfg
         self.agent_type = agent_type
         self.use_decoder = use_decoder
@@ -51,10 +66,17 @@ class GFObjectPose(nn.Module):
             dt = torch.bfloat16 if cfg.pointnet2.compute_dtype == "bfloat16" else None
             self.img_encoder = ImgEncoder(cfg.dino_dim, grid * grid, dtype=dt)
             self.pts_encoder = PointNet2ClsMSGFus(cfg.pointnet2, cfg.dino_dim)
-        else:
+        elif cfg.pts_encoder == "pointnet2":
             self.pts_encoder = PointNet2ClsMSG(cfg.pointnet2)
+        elif cfg.pts_encoder == "pointnet":
+            self.pts_encoder = PointNetFeat(out_dim=1024, in_dim=3)
+        else:
+            self.pts_pointnet_encoder = PointNetFeat(out_dim=1024, in_dim=3)
+            self.pts_pointnet2_encoder = PointNet2ClsMSG(cfg.pointnet2)
+            self.fusion_layer = nn.Linear(1024 + self.pts_pointnet2_encoder.out_channels, 1024)
+        feat_dim = 1024 if cfg.pts_encoder != "pointnet2" else self.pts_encoder.out_channels
         rgb_dim = cfg.dino_dim + cfg.global_embedding_dim if cfg.dino == "global" else 0
-        args = (marginal_std_fn, cfg.pose_dim, cfg.regression_head, self.pts_encoder.out_channels)
+        args = (marginal_std_fn, cfg.pose_dim, cfg.regression_head, feat_dim)
         if agent_type == "score" and use_decoder:
             self.pose_score_net = PoseDecoderNet(*args)
         elif agent_type == "score":
@@ -87,12 +109,13 @@ class GFObjectPose(nn.Module):
         """pts (B, N, 3) (+ the tapped ViT layers and each point's pixel with
         dino='pointwise') -> (B, C_final).
 
-        Eval: the fast encoder, without gradients (dino='global': the
-        encoder's module forward in eval form). ``train``: the encoder's
-        module forward with autograd, its noise and dropout drawn from
-        ``generator``; the per-point DINO feature is computed without
-        gradients (the JAX package's stop_gradient), so the ImgEncoder gets
-        none. ``plain`` runs the plain versions of the kernels."""
+        Eval: the fast encoder, without gradients (dino='global' and the
+        PointNet encoders: the encoders' module forwards in eval form).
+        ``train``: the encoders' module forwards with autograd, noise and
+        dropout drawn from ``generator``; the per-point DINO feature is
+        computed without gradients (the JAX package's stop_gradient), so the
+        ImgEncoder gets none. ``plain`` runs the plain versions of the
+        kernels."""
         if self.cfg.dino == "pointwise":
             with torch.no_grad():
                 rgb = self.pointwise_rgb_feat(self.fuse_dino_layers(dino_layers), roi_xs, roi_ys)
@@ -100,13 +123,22 @@ class GFObjectPose(nn.Module):
         else:
             inp = pts.float()
         if train:
-            return self.pts_encoder(inp, True, generator, plain)
-        if self.cfg.dino == "global":
+            return self._module_forward(inp, True, generator, plain)
+        if self.cfg.dino == "global" or self.cfg.pts_encoder != "pointnet2":
             with torch.no_grad():
-                return self.pts_encoder(inp, False, plain=plain)
+                return self._module_forward(inp, False, plain=plain)
         fast = fast_fus_forward if self.cfg.dino == "pointwise" else fast_cls_forward
         with torch.no_grad():
             return fast(self.pts_encoder, inp, self.cfg.pointnet2, plain=plain)
+
+    def _module_forward(self, inp, train: bool, generator=None, plain: bool = False):
+        if self.cfg.pts_encoder == "pointnet":
+            return self.pts_encoder(inp)
+        if self.cfg.pts_encoder == "pointnet_and_pointnet2":
+            f1 = self.pts_pointnet_encoder(inp)
+            f2 = self.pts_pointnet2_encoder(inp, train, generator, plain)
+            return torch.relu(self.fusion_layer(torch.cat([f1, f2], dim=-1)))
+        return self.pts_encoder(inp, train, generator, plain)
 
     def extract_global_rgb_feature(self, dino_global: torch.Tensor,
                                    roi_center_dir: torch.Tensor) -> torch.Tensor:

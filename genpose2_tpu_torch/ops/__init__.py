@@ -6,6 +6,7 @@ from genpose2_tpu_torch.ops.ball_query import ball_count, ball_query
 from genpose2_tpu_torch.ops.fps import furthest_point_sample
 from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage
 from genpose2_tpu_torch.ops.grouping import gather_points, group_points
+from genpose2_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from genpose2_tpu_torch.ops.layernorm import (fast_add_layernorm, fast_layernorm,
                                               fast_residual_layernorm)
 from genpose2_tpu_torch.ops.ode_rk4 import fused_rk4_integrate
@@ -24,6 +25,8 @@ __all__ = [
     "group_points",
     "fused_rk4_integrate",
     "relpe_attention",
+    "three_interpolate",
+    "three_nn",
     "vit_attention",
     "vit_attention_tm",
 ]

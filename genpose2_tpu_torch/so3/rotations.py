@@ -1,4 +1,4 @@
-"""Rotation math of the serving and evaluation paths (port of a subset of
+"""Rotation math of the pose representations (port of
 genpose2_tpu/so3/rotations.py).
 
 Quaternions are (w, x, y, z). The 9D 'rot_matrix' pose is
@@ -11,6 +11,12 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+
+
+def get_pose_dim(pose_mode: str) -> int:
+    """Width of a pose of ``pose_mode``: rotation part + translation (3)."""
+    return {"quat_wxyz": 7, "quat_xyzw": 7, "euler_xyz": 6, "euler_xyz_sx_cx": 9,
+            "rot_matrix": 9}[pose_mode]
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -113,30 +119,63 @@ def euler_zyx_to_matrix(euler: torch.Tensor) -> torch.Tensor:
             @ rot(ax, "1 0 0 0 c -s 0 s c"))
 
 
-def get_pose_representation(R: torch.Tensor, pose_mode: str) -> torch.Tensor:
-    """(..., 3, 3) -> the rotation part of the pose representation. The
-    quaternion and 'rot_matrix' modes are ported."""
-    if pose_mode == "rot_matrix":
-        return matrix_to_rot6d_cols(R)
-    if pose_mode == "quat_wxyz":
-        return matrix_to_quaternion(R)
-    if pose_mode == "quat_xyzw":
-        return matrix_to_quaternion(R)[..., [1, 2, 3, 0]]
-    raise NotImplementedError(f"pose_mode {pose_mode!r} is not ported yet (see ROADMAP.md)")
+def matrix_to_euler_zyx(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 3) angles (z, y, x) with R = Rz @ Ry @ Rx; R[2, 0]
+    is clipped to [-1, 1] (gimbal lock)."""
+    ay = torch.arcsin(-torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    az = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    ax = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([az, ay, ax], dim=-1)
 
 
 def get_rot_matrix(batch_rot: torch.Tensor, pose_mode: str) -> torch.Tensor:
-    """Rotation part of a pose -> (..., 3, 3). Only 'rot_matrix' is ported."""
+    """Rotation part of a pose -> (..., 3, 3)."""
+    if pose_mode == "quat_wxyz":
+        return quaternion_to_matrix(batch_rot)
+    if pose_mode == "quat_xyzw":
+        return quaternion_to_matrix(batch_rot[..., [3, 0, 1, 2]])
     if pose_mode == "rot_matrix":
         return rot6d_cols_to_matrix(batch_rot)
-    raise NotImplementedError(f"pose_mode {pose_mode!r} is not ported yet (see ROADMAP.md)")
+    if pose_mode == "euler_xyz":
+        return euler_zyx_to_matrix(batch_rot)
+    if pose_mode == "euler_xyz_sx_cx":
+        return euler_zyx_to_matrix(torch.atan2(batch_rot[..., :3], batch_rot[..., 3:6]))
+    raise NotImplementedError(pose_mode)
+
+
+def get_pose_representation(R: torch.Tensor, pose_mode: str) -> torch.Tensor:
+    """(..., 3, 3) -> the rotation part of the pose representation."""
+    if pose_mode == "quat_xyzw":
+        return matrix_to_quaternion(R)[..., [1, 2, 3, 0]]
+    if pose_mode == "quat_wxyz":
+        return matrix_to_quaternion(R)
+    if pose_mode == "rot_matrix":
+        return matrix_to_rot6d_cols(R)
+    if pose_mode == "euler_xyz":
+        return matrix_to_euler_zyx(R)
+    if pose_mode == "euler_xyz_sx_cx":
+        e = matrix_to_euler_zyx(R)
+        return torch.cat([torch.sin(e), torch.cos(e)], dim=-1)
+    raise NotImplementedError(pose_mode)
 
 
 def normalize_rotation(rotation: torch.Tensor, pose_mode: str) -> torch.Tensor:
     """Project the rotation part of a pose back onto the manifold."""
+    if pose_mode in ("quat_wxyz", "quat_xyzw"):
+        return _normalize(rotation)
     if pose_mode == "rot_matrix":
         return matrix_to_rot6d_cols(rot6d_cols_to_matrix(rotation))
-    raise NotImplementedError(f"pose_mode {pose_mode!r} is not ported yet (see ROADMAP.md)")
+    if pose_mode == "euler_xyz_sx_cx":
+        theta = torch.atan2(rotation[..., :3], rotation[..., 3:6])
+        return torch.cat([torch.sin(theta), torch.cos(theta)], dim=-1)
+    if pose_mode == "euler_xyz":
+        return rotation
+    raise NotImplementedError(pose_mode)
+
+
+def normalize_pose(pose: torch.Tensor, pose_mode: str) -> torch.Tensor:
+    """``normalize_rotation`` of pose[..., :-3]; the translation passes through."""
+    return torch.cat([normalize_rotation(pose[..., :-3], pose_mode), pose[..., -3:]], dim=-1)
 
 
 def inverse_RT(R: torch.Tensor, t: torch.Tensor):
@@ -147,11 +186,12 @@ def inverse_RT(R: torch.Tensor, t: torch.Tensor):
 
 def transform_batch_pts(pts: torch.Tensor, pose: torch.Tensor, pose_mode: str = "rot_matrix",
                         inverse_pose: bool = False) -> torch.Tensor:
-    """Apply the pose [rotation, translation] (..., 9) to the xyz channels of
-    points (..., N, C >= 3); the other channels pass through. Only
-    'rot_matrix' is ported (``get_rot_matrix``)."""
-    R = get_rot_matrix(pose[..., :-3], pose_mode)
-    t = pose[..., -3:]
+    """Apply the pose [rotation, translation] (..., get_pose_dim(pose_mode))
+    to the xyz channels of points (..., N, C >= 3); the other channels pass
+    through."""
+    rot_dim = get_pose_dim(pose_mode) - 3
+    R = get_rot_matrix(pose[..., :rot_dim], pose_mode)
+    t = pose[..., rot_dim:]
     if inverse_pose:
         R, t = inverse_RT(R, t)
     xyz = (R[..., None, :, :] * pts[..., None, :3]).sum(-1) + t[..., None, :]

@@ -7,10 +7,13 @@ ScaleAgent.predict) and training (``init_state``, ``train_step`` /
 A training step follows the JAX package's ``train_step``: the frozen
 backbone's features without gradients, the encoder's module forward in train
 mode (FPS and ball-query kernels on the card), the repeat_num-draw DSM loss
-(plus the ranking loss when an energy batch carries candidates), gradients
-by autograd, the global-norm clip and Adam or SGD step, the EMA update. A
-step whose loss is not finite changes nothing but the step counter: no
-parameter, optimizer state, BatchNorm statistic or EMA entry.
+(plus the ranking loss when an energy batch carries candidates; the EDM
+loss for the decoder agent; with dino='global' the heads also take the
+global rgb feature), gradients by autograd, the global-norm clip and Adam or
+SGD step, the EMA update. ``train_step_distilled`` is the same step with a
+teacher's score as the DSM target. A step whose loss is not finite changes
+nothing but the step counter: no parameter, optimizer state, BatchNorm
+statistic or EMA entry.
 
 Each agent owns its network (``.model``) and, with dino='pointwise' or
 'global', its frozen backbone (``.provider.vit``) on its device; weights
@@ -36,7 +39,7 @@ from genpose2_tpu_torch.config import Config
 from genpose2_tpu_torch.device import resolve_device
 from genpose2_tpu_torch.diffusion import (edm_sampler, init_sde, ode_likelihood, ode_sampler,
                                           pc_sampler)
-from genpose2_tpu_torch.diffusion.losses import dsm_draws, dsm_loss
+from genpose2_tpu_torch.diffusion.losses import dsm_draws, dsm_loss, edm_draws, edm_loss
 from genpose2_tpu_torch.models.layers import batch_stats, update_running_stats
 from genpose2_tpu_torch.models.posenet import GFObjectPose
 from genpose2_tpu_torch.models.provider import ImageFeatureProvider
@@ -159,9 +162,25 @@ class PoseAgent(_Trainable):
                                                              bn_stats))
         return state, metrics
 
+    def train_step_distilled(self, state: TrainState, teacher, batch: dict,
+                             generator: Optional[torch.Generator] = None,
+                             draws: Optional[dict] = None):
+        """One score-distillation step: the DSM target is the teacher's
+        score at the same perturbed poses and times, over the teacher's own
+        features. ``teacher`` is a (score agent, its train state) pair of
+        this agent's architecture; the teacher runs its state's EMA weights
+        (the fast encoder and the module score net, without gradients).
+        Returns (state, metrics ``loss`` and ``distill_loss``, the JAX
+        package's); the NaN guard and the EMA update are ``train_step``'s.
+        Arguments as ``loss_and_grads``."""
+        loss, metrics, grads, bn_stats = self.loss_and_grads(state, batch, generator, draws,
+                                                             teacher=teacher)
+        self.apply_gradients(state, loss, grads.values(), bn_stats)
+        return state, {"loss": metrics["loss"], "distill_loss": metrics["loss"]}
+
     def loss_and_grads(self, state: TrainState, batch: dict,
                        generator: Optional[torch.Generator] = None,
-                       draws: Optional[dict] = None, plain: bool = False):
+                       draws: Optional[dict] = None, plain: bool = False, teacher=None):
         """The training loss of a batch, its gradients and its BatchNorm
         statistics: (loss, metrics, {name: gradient or None} over
         ``state.params``, bn_stats for ``apply_gradients``). The model and
@@ -169,44 +188,56 @@ class PoseAgent(_Trainable):
 
         batch: ``pts`` (B, N, 3) the camera-frame cloud, ``zero_mean_gt_pose``
         (B, D), with dino='pointwise' ``roi_xs``/``roi_ys`` and ``dino_layers``
-        or ``roi_rgb``; energy batches may add ``candidate_poses`` (B, K, D)
-        and ``candidate_metrics`` (B, K, 2). Input jitter, dropout masks and
-        the loss's draws come from ``generator`` (on the agent's device) in
-        that order, unless ``draws`` gives the DSM draws ``t`` (R, B, 1) and
-        ``z`` (R, B, D) and the ranking times ``rank_t`` (B * K, 1). ``plain``
-        runs the plain versions of the kernels."""
-        if self.cfg.model.dino == "global":
-            raise NotImplementedError("training with dino='global' is not ported yet "
-                                      "(ROADMAP.md queue 1, the rest of training)")
-        if self.use_decoder:
-            raise NotImplementedError("training the EDM decoder (sde mode 'edm') needs "
-                                      "edm_loss, not ported yet (ROADMAP.md queue 1, the "
-                                      "rest of training)")
+        or ``roi_rgb``, with dino='global' ``roi_center_dir`` and
+        ``dino_global`` or ``roi_rgb``; energy batches may add
+        ``candidate_poses`` (B, K, D) and ``candidate_metrics`` (B, K, 2). The
+        loss: DSM over ``repeat_num`` draws (with ``teacher``, a (score agent,
+        state) pair, the teacher's score as the target), for the decoder
+        agent (sde mode 'edm') the EDM loss; plus the ranking loss for energy
+        batches with candidates. With dino='global' the heads also take the
+        global rgb feature, repeated over the draws and the candidates.
+        Input jitter, dropout masks and the loss's draws come from
+        ``generator`` (on the agent's device) in that order, unless ``draws``
+        gives the DSM draws ``t`` (R, B, 1) and ``z`` (R, B, D), the EDM draws
+        ``z`` (R, B, D) and ``u`` (R, B, 1), and the ranking times ``rank_t``
+        (B * K, 1). ``plain`` runs the plain versions of the kernels."""
         dev = self.device
         draws = draws or {}
-        batch = self.with_image_features(batch, plain)
+        with torch.no_grad():  # the frozen backbone
+            batch = self.with_image_features(batch, plain)
         gt = batch["zero_mean_gt_pose"].to(dev, torch.float32)
         B, D = gt.shape
+        R = self.cfg.train.repeat_num
         self.model.train()
         try:
             with torch.enable_grad(), batch_stats() as bn_stats:
                 feat = self._features(batch, train=True, generator=generator, plain=plain)
-                if "t" in draws:
-                    t, z = draws["t"].to(dev), draws["z"].to(dev)
+                rgb = self._global_rgb(batch)
+                if self.use_decoder:
+                    z, u = ((draws["z"].to(dev), draws["u"].to(dev)) if "u" in draws
+                            else edm_draws(B, D, R, generator, dev))
+                    feat_rep, rgb_rep = _repeat(feat, z.shape[0]), _repeat(rgb, z.shape[0])
+                    sde = self.cfg.sde
+                    loss = edm_loss(lambda x, sigma: self.model.denoise(feat_rep, x, sigma,
+                                                                        rgb_rep),
+                                    gt, z, u, sde.edm_sigma_min, sde.edm_sigma_max)
                 else:
-                    t, z = dsm_draws(B, D, self.sde, self.cfg.train.repeat_num, generator, dev)
-                R = t.shape[0]
-                feat_rep = feat[None].expand(R, *feat.shape).reshape(R * B, -1)
-                if self.agent_type == "score":
-                    def score_fn(x, tt):
-                        return self.model.score(feat_rep, x, tt)
-                else:
-                    def score_fn(x, tt):
-                        return self.model.energy_score(feat_rep, x, tt)
-                loss = dsm_loss(score_fn, gt, self.sde, t, z)
+                    t, z = ((draws["t"].to(dev), draws["z"].to(dev)) if "t" in draws
+                            else dsm_draws(B, D, self.sde, R, generator, dev))
+                    feat_rep, rgb_rep = _repeat(feat, t.shape[0]), _repeat(rgb, t.shape[0])
+                    if self.agent_type == "score":
+                        def score_fn(x, tt):
+                            return self.model.score(feat_rep, x, tt, rgb_rep)
+                    else:
+                        def score_fn(x, tt):
+                            return self.model.energy_score(feat_rep, x, tt, rgb_rep)
+                    target = None
+                    if teacher is not None:
+                        target = _teacher_score(teacher, batch, t.shape[0], plain)
+                    loss = dsm_loss(score_fn, gt, self.sde, t, z, teacher_score_fn=target)
                 metrics = {"score_loss": loss.detach()}
                 if self.agent_type == "energy" and "candidate_poses" in batch:
-                    r_loss = self._ranking_loss(batch, feat, draws.get("rank_t"), generator)
+                    r_loss = self._ranking_loss(batch, feat, rgb, draws.get("rank_t"), generator)
                     metrics["ranking_loss"] = r_loss.detach()
                     loss = loss + r_loss
                 grads = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True)
@@ -214,6 +245,14 @@ class PoseAgent(_Trainable):
             self.model.eval()
         metrics["loss"] = loss.detach()
         return loss, metrics, dict(zip(state.params, grads)), bn_stats
+
+    def _global_rgb(self, batch: dict) -> Optional[torch.Tensor]:
+        """dino='global': the global rgb feature of a batch whose image
+        features are attached; else None."""
+        if self.cfg.model.dino != "global":
+            return None
+        return self.model.extract_global_rgb_feature(batch["dino_global"].to(self.device),
+                                                     batch["roi_center_dir"].to(self.device))
 
     def train_steps(self, state: TrainState, batches: Sequence[dict],
                     generator: Optional[torch.Generator] = None,
@@ -226,7 +265,8 @@ class PoseAgent(_Trainable):
             metrics.append(m)
         return state, metrics
 
-    def _ranking_loss(self, batch: dict, feat: torch.Tensor, rank_t, generator):
+    def _ranking_loss(self, batch: dict, feat: torch.Tensor, rgb: Optional[torch.Tensor],
+                      rank_t, generator):
         """The candidates' decoupled energies at t ~ U(1e-5, 1e-4), sorted
         by their ground-truth errors, through the pairwise ranking loss."""
         cand = batch["candidate_poses"].to(self.device, torch.float32)
@@ -235,9 +275,11 @@ class PoseAgent(_Trainable):
             lo, hi = RANK_T
             rank_t = torch.rand((B * K, 1), generator=generator, device=self.device)
             rank_t = rank_t * (hi - lo) + lo
-        feat_rep = feat[:, None].expand(B, K, feat.shape[-1]).reshape(B * K, -1)
-        energy = self.model.energy(feat_rep, cand.reshape(B * K, D), rank_t.to(self.device),
-                                   True).reshape(B, K, 2)
+        def rep(x):  # (B, F) -> (B * K, F), object-major
+            return None if x is None else x[:, None].expand(B, K, x.shape[-1]).reshape(B * K, -1)
+
+        energy = self.model.energy(rep(feat), cand.reshape(B * K, D), rank_t.to(self.device),
+                                   True, rep(rgb)).reshape(B, K, 2)
         return ranking_loss(sort_results(energy, batch["candidate_metrics"].to(self.device)))
 
     def _features(self, batch: dict, train: bool = False,
@@ -278,11 +320,7 @@ class PoseAgent(_Trainable):
         ``use_ema`` pick the weights (see ``weights``)."""
         batch = self.with_image_features(batch, plain)
         with self.weights(state, use_ema):
-            rgb_feat = None
-            if self.cfg.model.dino == "global":
-                rgb_feat = self.model.extract_global_rgb_feature(
-                    batch["dino_global"].to(self.device), batch["roi_center_dir"].to(self.device))
-            return self._features(batch, plain=plain), rgb_feat
+            return self._features(batch, plain=plain), self._global_rgb(batch)
 
     def _pose_net(self, state: Optional[TrainState], use_ema: bool):
         """The pose net, or with a state whose EMA weights are asked for a
@@ -447,6 +485,27 @@ class PoseAgent(_Trainable):
             rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, 0)
             energy = self.model.energy(pts_feat.repeat_interleave(K, 0), flat, t, True, rgb_rep)
             return energy.reshape(B, K, 2)
+
+
+def _repeat(x: Optional[torch.Tensor], r: int) -> Optional[torch.Tensor]:
+    """(B, F) -> (r * B, F), the draws' stacking order (draw-major)."""
+    return None if x is None else x[None].expand(r, *x.shape).reshape(r * x.shape[0], -1)
+
+
+def _teacher_score(teacher, batch: dict, repeat: int, plain: bool = False):
+    """The distillation target: (x, t) -> the teacher agent's score at
+    (x, t) over its own features of ``batch``, from its state's EMA
+    weights, without gradients. ``teacher`` = (score agent, train state)."""
+    agent, state = teacher
+    with torch.no_grad():
+        feat, rgb = agent.extract_features(batch, plain, state=state)
+    feat_rep, rgb_rep = _repeat(feat, repeat), _repeat(rgb, repeat)
+
+    def score(x, t):
+        with torch.no_grad(), agent.weights(state):
+            return agent.model.score(feat_rep, x, t, rgb_rep)
+
+    return score
 
 
 @torch.no_grad()

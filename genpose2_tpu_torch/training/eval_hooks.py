@@ -32,7 +32,8 @@ def make_sampling_eval_fn(agent, cfg: Config, eval_batch_fn: Callable[[int], dic
         g = torch.Generator(agent.device).manual_seed(epoch)
         poses = agent.sample_candidates(batch, repeat_num=repeat_num, T0=1.0, method="fixed",
                                         num_steps=num_steps, generator=g, state=state)
-        agg = aggregate_candidates(poses, None, retain_ratio=cfg.eval.retain_ratio)
+        agg = aggregate_candidates(poses, None, retain_ratio=cfg.eval.retain_ratio,
+                                   pose_mode=cfg.model.pose_mode)
         n = poses.shape[0]
         sizes = batch.get("bbox_side_len",
                           torch.full((n, 3), 0.1, dtype=poses.dtype, device=poses.device))

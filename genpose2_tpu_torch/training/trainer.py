@@ -15,12 +15,12 @@ a raw scale batch goes through ``process_batch`` first (the JAX trainer reads
 ``final``. Each epoch's draws come from a generator seeded by (seed,
 epoch), so a resumed run repeats the uninterrupted one bit for bit on the
 CPU. The port runs one step at a time (the JAX package scans chunks of
-steps in one dispatch) and logs every 8th step, the scale agent every 50th,
-and one record an epoch.
+steps in one dispatch) and logs every 8th step, the scale agent and
+distillation every 50th, and one record an epoch. With
+``cfg.train.distillation``, a score agent and a ``frozen_score`` pair, each
+step is ``train_step_distilled`` with that pair as the teacher.
 
-Still raising, with their ROADMAP.md items (queue 1, the rest of training):
-distillation, the EDM decoder's training, ``dino='global'`` training;
-multi-device training (queue 1, parallel and utilities).
+Multi-device training raises (ROADMAP.md queue 1, parallel and utilities).
 """
 
 from __future__ import annotations
@@ -95,9 +95,10 @@ class Trainer:
     """Epoch loop of one agent, with logging, periodic evaluation and
     checkpoints under ``log_dir`` (``<log_dir>/<agent_type>_metrics.jsonl``,
     ``<log_dir>/ckpt/``). ``frozen_score`` is the (score agent, its train
-    state) pair whose features the scale agent trains on and whose candidates
-    the energy-with-ranking agent ranks, read through the state's EMA weights
-    as the JAX trainer reads them. ``score_ckpt`` warm-starts an energy agent
+    state) pair whose features the scale agent trains on, whose candidates
+    the energy-with-ranking agent ranks and whose score a distilled score
+    agent learns, read through the state's EMA weights as the JAX trainer
+    reads them. ``score_ckpt`` warm-starts an energy agent
     from a score checkpoint with zeroed heads; ``resume_from`` restores a
     whole train state."""
 
@@ -116,9 +117,8 @@ class Trainer:
         self.log_dir = log_dir or cfg.log_dir
         self.logger = MetricsLogger(self.log_dir, self.agent_type)
         self.is_scale = self.agent_type == "scale"
-        if cfg.train.distillation and self.agent_type == "score" and frozen_score is not None:
-            raise NotImplementedError("distillation (train_step_distilled) is not ported yet "
-                                      "(ROADMAP.md queue 1, the rest of training)")
+        self.distilled = (cfg.train.distillation and self.agent_type == "score"
+                          and frozen_score is not None)
         # the scale agent is built by init(), sized from the frozen feature
         self.agent = None
         if not self.is_scale:
@@ -178,17 +178,20 @@ class Trainer:
 
     def train_epoch(self, batches: Iterable[dict],
                     generator: Optional[torch.Generator] = None, epoch: int = 0) -> dict:
-        """One step per batch; logs every 8th step (the scale agent every
-        50th) and one record for the epoch (its last step's metrics as
-        ``epoch_<name>`` and ``epoch_time_s``). Returns the last step's
-        metrics."""
+        """One step per batch; logs every 8th step (the scale agent and
+        distillation every 50th) and one record for the epoch (its last
+        step's metrics as ``epoch_<name>`` and ``epoch_time_s``). Returns the
+        last step's metrics."""
         t0 = time.time()
         last: dict = {}
-        every = 50 if self.is_scale else 8
+        every = 50 if self.is_scale or self.distilled else 8
         for i, batch in enumerate(batches):
             batch = self._prepare(batch, generator)
             if self.is_scale:
                 self.state, last = self.agent.train_step(self.state, batch)
+            elif self.distilled:
+                self.state, last = self.agent.train_step_distilled(self.state, self.frozen_score,
+                                                                   batch, generator)
             else:
                 self.state, last = self.agent.train_step(self.state, batch, generator)
             if i % every == 0:

@@ -61,8 +61,10 @@ class StateDict:
         self.sd[f"{key}.bias"] = _t(p["bias"])
 
 
-def _pointnet2_cls(d: StateDict, params, stats, cfg: PointNet2Config, prefix: str) -> None:
-    for k, npoint in enumerate(cfg.npoints):
+def _pointnet2_cls(d: StateDict, params, stats, cfg: PointNet2Config, prefix: str,
+                   stages=None) -> None:
+    """The SA stack (its first ``stages`` stages when given)."""
+    for k, npoint in enumerate(cfg.npoints[:stages]):
         p, s = params[f"SetAbstractionMSG_{k}"], stats[f"SetAbstractionMSG_{k}"]
         for sc in range(len(cfg.mlps[k])):
             key = f"{prefix}SA_modules.{k}.mlps.{sc}"
@@ -76,6 +78,59 @@ def _pointnet2_cls(d: StateDict, params, stats, cfg: PointNet2Config, prefix: st
             for j in range(n_dense):
                 d.conv_bn(mp[f"Dense_{j}"]["kernel"], mp[f"BatchNorm_{j}"], ms[f"BatchNorm_{j}"],
                           f"{key}.layer{j + first}")
+
+
+def shared_mlp(d: StateDict, p: dict, s: dict, key: str) -> None:
+    """A SharedMLP (Dense_i + BatchNorm_i) -> ``{key}.layer{i}``."""
+    for j in range(sum(1 for name in p if name.startswith("Dense_"))):
+        d.conv_bn(p[f"Dense_{j}"]["kernel"], p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"],
+                  f"{key}.layer{j}")
+
+
+def _stn(d: StateDict, p: dict, prefix: str) -> None:
+    for i, name in enumerate(("conv1", "conv2", "conv3")):
+        d.conv1x1(p[f"Dense_{i}"], f"{prefix}{name}")
+    for i, name in enumerate(("fc1", "fc2", "fc3")):
+        d.linear(p[f"Dense_{i + 3}"], f"{prefix}{name}")
+
+
+def pointnet_feat(d: StateDict, p: dict, prefix: str) -> None:
+    """PointNetFeat: the inverse of torch_ingest._convert_pointnet_feat."""
+    _stn(d, p["STNkd_0"], f"{prefix}stn.")
+    for i, name in enumerate(("conv1", "conv2", "conv3", "conv4")):
+        d.conv1x1(p[f"Dense_{i}"], f"{prefix}{name}")
+    if "STNkd_1" in p:
+        _stn(d, p["STNkd_1"], f"{prefix}fstn.")
+
+
+def head_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
+    """RotHead / TransHead variables (Dense_0..3) -> the port's head state
+    dict (``conv1``..``conv4``)."""
+    d = StateDict()
+    for i in range(4):
+        d.conv1x1(variables["params"][f"Dense_{i}"], f"conv{i + 1}")
+    return d.sd
+
+
+def segmsg_state_dict(variables: dict, cfg: PointNet2Config,
+                      fp_layers: int = 4) -> Dict[str, torch.Tensor]:
+    """PointNet2SegMSG variables (``fp_layers`` SA and FP stages) -> the
+    port's PointNet2SegMSG state dict. The JAX module creates its
+    FeaturePropagation modules coarsest first, so FeaturePropagation_j is
+    the port's FP_modules[fp_layers - 1 - j]."""
+    d = StateDict()
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    _pointnet2_cls(d, params, stats, cfg, "", stages=fp_layers)
+    for j in range(fp_layers):
+        name = f"FeaturePropagation_{j}"
+        shared_mlp(d, params[name]["SharedMLP_0"], stats[name]["SharedMLP_0"],
+                   f"FP_modules.{fp_layers - 1 - j}.mlp")
+    j = 0
+    while f"SharedMLP_{j}" in params:
+        shared_mlp(d, params[f"SharedMLP_{j}"], stats[f"SharedMLP_{j}"], f"cls_fc.{j}")
+        j += 1
+    d.linear(params["Dense_0"], "cls_out")
+    return d.sd
 
 
 def relative_pe(d: StateDict, p: dict, key: str) -> None:
@@ -162,17 +217,24 @@ def _decoder_head(d: StateDict, params, regression_head: str, prefix: str) -> No
 
 def posenet_state_dict(variables: dict, cfg: ModelConfig,
                        use_decoder: bool = False) -> Dict[str, torch.Tensor]:
-    """GFObjectPose (score or energy, dino='none', 'pointwise' or 'global',
-    pointnet2) variables -> the port's GFObjectPose state dict. ``img_encoder.*``
-    comes along where the tree holds it (dino='pointwise'; a global model's
-    tree has none). ``use_decoder``: the score agent's EDM decoder
-    (sde mode 'edm') in place of the score net, see ``_decoder_head``."""
-    if cfg.dino not in ("none", "pointwise", "global") or cfg.pts_encoder != "pointnet2":
-        raise NotImplementedError("only pts_encoder='pointnet2' is ported")
+    """GFObjectPose (score or energy, every point encoder and dino mode the
+    port takes, see models/posenet.py) variables -> the port's GFObjectPose
+    state dict. ``img_encoder.*`` comes along where the tree holds it
+    (dino='pointwise'; a global model's tree has none). ``use_decoder``: the
+    score agent's EDM decoder (sde mode 'edm') in place of the score net,
+    see ``_decoder_head``."""
     d = StateDict()
     params, stats = variables["params"], variables.get("batch_stats", {})
-    encoder = _pointnet2_fus if cfg.dino == "pointwise" else _pointnet2_cls
-    encoder(d, params["pts_encoder"], stats["pts_encoder"], cfg.pointnet2, "pts_encoder.")
+    if cfg.pts_encoder == "pointnet":
+        pointnet_feat(d, params["pts_encoder"], "pts_encoder.")
+    elif cfg.pts_encoder == "pointnet_and_pointnet2":
+        pointnet_feat(d, params["pts_pointnet"], "pts_pointnet_encoder.")
+        _pointnet2_cls(d, params["pts_pointnet2"], stats["pts_pointnet2"], cfg.pointnet2,
+                       "pts_pointnet2_encoder.")
+        d.linear(params["fusion_layer"], "fusion_layer")
+    else:
+        encoder = _pointnet2_fus if cfg.dino == "pointwise" else _pointnet2_cls
+        encoder(d, params["pts_encoder"], stats["pts_encoder"], cfg.pointnet2, "pts_encoder.")
     if "img_encoder" in params:
         img_encoder(d, params["img_encoder"], "img_encoder")
     if use_decoder:

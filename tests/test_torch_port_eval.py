@@ -101,8 +101,12 @@ def test_so3_additions_match_jax():
             so3.transform_batch_pts(_t(pts), _t(pose), inverse_pose=inverse).numpy(),
             np.asarray(jax_so3.transform_batch_pts(jnp.asarray(pts), jnp.asarray(pose),
                                                    inverse_pose=inverse)), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        so3.transform_batch_pts(_t(pts), _t(pose[:, :7]), pose_mode="quat_wxyz")
+    # the quaternion mode (every mode: tests/test_torch_port_modes.py)
+    q = np.concatenate([np.asarray(jax_so3.matrix_to_quaternion(jnp.asarray(R1))), t], -1)
+    np.testing.assert_allclose(
+        so3.transform_batch_pts(_t(pts), _t(q), pose_mode="quat_wxyz").numpy(),
+        np.asarray(jax_so3.transform_batch_pts(jnp.asarray(pts), jnp.asarray(q),
+                                               pose_mode="quat_wxyz")), rtol=0, atol=1e-5)
     # the angle: its cosine (the float32 trace) within 1e-6; the degrees as
     # _deg_close (arccos amplifies the cosine's rounding near 0 and 180)
     got = so3.rotation_angle_deg(_t(R1), _t(R2)).numpy()

@@ -399,18 +399,35 @@ def test_backbone_skipped_when_batch_carries_layers(flagship, monkeypatch):
 
 @pytest.mark.parametrize("lacks", ["global_train_step", "pointnet_encoder"])
 def test_port_refuses_what_it_lacks(lacks):
-    """Training with dino='global' and the PointNet encoder are not ported:
-    the port raises, naming ROADMAP.md, rather than running something else."""
+    """What the port once refused runs now (held against the JAX package in
+    tests/test_torch_port_train_rest.py and test_torch_port_modes.py): a
+    dino='global' train step moves the parameters, among them the heads';
+    the PointNet encoder serves dino='global' and refuses dino='pointwise',
+    where the JAX package fails."""
+    _, pbatch = _batches()
     if lacks == "pointnet_encoder":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="pointwise"):
             PoseAgent(_model_cfg(tiny_flagship_config(), pts_encoder="pointnet"), "score",
                       device="cpu")
+        agent = PoseAgent(_model_cfg(tiny_flagship_config(), pts_encoder="pointnet",
+                                     dino="global"), "score", device="cpu")
+        feat, rgb = agent.extract_features(dict(pbatch, roi_center_dir=torch.ones(B, 3)))
+        assert feat.shape == (B, 1024) and rgb.shape[0] == B
+        assert bool(torch.isfinite(feat).all())
         return
     agent = PoseAgent(_model_cfg(tiny_flagship_config(), dino="global"), "score", device="cpu")
-    _, pbatch = _batches()
     batch = dict(pbatch, zero_mean_gt_pose=torch.zeros(B, 9), roi_center_dir=torch.ones(B, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        agent.train_step(agent.init_state(), batch)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # output layers start at zero: no gradient would reach the encoder
+        for p in agent.model.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    state = agent.init_state()
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    state, metrics = agent.train_step(state, batch, torch.Generator().manual_seed(0))
+    assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+    moved = [k for k, p in state.params.items() if not torch.equal(p, before[k])]
+    assert any(k.startswith("pts_encoder.") for k in moved)
+    assert any(k.startswith("pose_score_net.fusion_tail") for k in moved)
 
 
 # ----------------------------------------------------------------- weights

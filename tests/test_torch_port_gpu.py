@@ -1027,3 +1027,67 @@ def test_tiny_evaluator_streaming_on_card_kernels_match_plain(card, tmp_path):
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=5e-4, err_msg=k)
         np.testing.assert_allclose(got["lengths"], want["lengths"], rtol=1e-3, atol=1e-3)
         np.testing.assert_allclose(got["sht"], want["sht"], rtol=0, atol=0.1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,head", [(7, "R_and_T"), (6, "RT")])
+@pytest.mark.parametrize("R,steps,T0", [
+    (600, 100, 0.15),   # a tracking call: 12 objects x 50 candidates
+    (3200, 50, 0.55),   # a request: 64 objects x 50 candidates
+])
+def test_rk4_kernel_pose_mode_widths(card, dtype, D, head, R, steps, T0):
+    """The quaternion modes' score net (R_and_T: two 256-wide heads, D = 7)
+    and euler_xyz's (RT: one 512-wide head, D = 6): H1 = 512."""
+    sde = init_sde("ve")
+    net = _randomize(PoseScoreNet(sde.marginal_std, D, head, 128), 15).to(card)
+    g = torch.Generator().manual_seed(16)
+    feat = torch.randn(R, 128, generator=g).to(card)
+    x0 = (torch.randn(R, D, generator=g) * T0).to(card)
+    with torch.no_grad():
+        w = fast_score_weights(net, feat)
+        assert (w["W1_pose"].shape, w["W2bd"].shape) == ((256, 512), (512, D))
+        before = _cuda.launch_counts["fused_rk4"]
+        got = fused_rk4_integrate(x0, w, sde, T0, steps, dtype)
+        assert _cuda.launch_counts["fused_rk4"] == before + 1
+        want = fused_rk4_plain(x0, w, sde, T0, steps, dtype)
+    # the bounds of test_rk4_kernel_flagship_widths (chip_smoke.py's)
+    atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_segmsg_kernels_match_plain(card, train, monkeypatch):
+    """PointNet2SegMSG at the default config (four grouped stages, 1,024
+    points): every FPS and ball query of its forward against the plain
+    version on the same inputs, exact; the logits within 1e-4 of their
+    largest (the same float32 work on the same indices)."""
+    from genpose2_tpu_torch.config import PointNet2Config
+    from genpose2_tpu_torch.models import pointnet2 as pn2
+    from genpose2_tpu_torch.models.pointnet2 import PointNet2SegMSG
+
+    torch.manual_seed(17)
+    model = _randomize(PointNet2SegMSG(PointNet2Config()), 18).to(card)
+    g = torch.Generator().manual_seed(19)
+    pts = (torch.rand(8, 1024, 3, generator=g) * 0.3 - 0.15).to(card)
+    calls = []
+
+    def recording(kernel, plain):
+        def run(*a):
+            got, want = kernel(*a), plain(*a)
+            calls.append(torch.equal(got, want))
+            return got
+        return run
+
+    monkeypatch.setattr(pn2, "furthest_point_sample", recording(furthest_point_sample, fps_plain))
+    monkeypatch.setattr(pn2, "ball_query", recording(ball_query, ball_query_plain))
+    before = {k: _cuda.launch_counts[k] for k in ("fps", "ball_query")}
+    with torch.no_grad():
+        got = model(pts, train, torch.Generator(card).manual_seed(1))
+    launched = {k: _cuda.launch_counts[k] - n for k, n in before.items()}
+    assert launched == {"fps": 4, "ball_query": 8}
+    assert len(calls) == 12 and all(calls)
+    with torch.no_grad():
+        want = model(pts, train, torch.Generator(card).manual_seed(1), plain=True)
+    assert got.shape == (8, 1024, 1) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

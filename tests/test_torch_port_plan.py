@@ -110,6 +110,19 @@ def test_rk4_plan(plan_lib, bf16, R, rows):
                        ("off_w2", es * p["w2_rows"] * 24),
                        ("off_ring", es * p["nbuf"] * p["ring_elems"])])
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [7, 6])  # the quaternion modes (R_and_T), euler_xyz (RT)
+@pytest.mark.parametrize("R,rows", [(600, 16), (3200, 32)])
+def test_rk4_plan_pose_mode_widths(plan_lib, bf16, D, R, rows):
+    """H1 = 512 (two 256-wide heads, or RT's one 512-wide head): the tiles
+    of the 768-wide plan, W2 resident, the layout inside 227 KB."""
+    p = rk4_plan(plan_lib, R, bf16, D=D, H1=512)
+    assert p is not None and p["rows"] == rows
+    assert p["dpad"] == 8 and p["w2_rows"] in (0, 512)
+    assert p["ldq"] == 512 + (8 if bf16 else 4)
+    assert p["smem_bytes"] <= 227 * 1024
+
+
 def test_rk4_plan_refuses(plan_lib):
     assert rk4_plan(plan_lib, 100, True, D=17) is None  # the last product holds 16 columns
     assert rk4_plan(plan_lib, 0, True) is None

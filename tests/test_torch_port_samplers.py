@@ -564,15 +564,33 @@ def test_evaluator_rk45_mode_matches_jax(agents):
 
 
 def test_decoder_agent_refuses_to_train():
-    """The decoder needs edm_loss, which waits (ROADMAP.md queue 1, the rest
-    of training): its loss_and_grads raises rather than train it with the
-    DSM loss."""
+    """The decoder trains with edm_loss, not with the DSM loss (held against
+    the JAX step in tests/test_torch_port_train_rest.py): its loss is
+    edm_loss over the denoiser at the step's draws, and it still has no
+    score head."""
+    from genpose2_tpu_torch.diffusion.losses import edm_draws, edm_loss
+
     cfg = _edm(tiny_test_config())
     agent = PoseAgent(cfg, "score", device="cpu")
     assert agent.use_decoder
     pts = torch.rand(2, cfg.model.num_points, 3)
-    batch = {"pts": pts, "zero_mean_gt_pose": torch.zeros(2, 9)}
-    with pytest.raises(NotImplementedError, match="edm_loss"):
-        agent.loss_and_grads(agent.init_state(), batch)
+    gt = torch.randn(2, 9, generator=torch.Generator().manual_seed(0))
+    batch = {"pts": pts, "zero_mean_gt_pose": gt}
+    z, u = edm_draws(2, 9, cfg.train.repeat_num, torch.Generator().manual_seed(1))
+    loss, metrics, grads, _ = agent.loss_and_grads(agent.init_state(), batch,
+                                                   draws={"z": z, "u": u})
+    assert set(metrics) == {"score_loss", "loss"} and bool(torch.isfinite(loss))
+    # the same loss from the train-mode features through edm_loss by hand
+    agent.model.train()
+    with torch.no_grad():
+        feat = agent.model.extract_pts_feature(pts, train=True)
+    agent.model.eval()
+    R = z.shape[0]
+    feat_rep = feat[None].expand(R, *feat.shape).reshape(R * 2, -1)
+    with torch.no_grad():
+        want = edm_loss(lambda x, s: agent.model.denoise(feat_rep, x, s), gt, z, u,
+                        cfg.sde.edm_sigma_min, cfg.sde.edm_sigma_max)
+    torch.testing.assert_close(loss.detach(), want, rtol=1e-6, atol=0)
+    assert any(g is not None and bool(g.abs().max() > 0) for g in grads.values())
     with pytest.raises(AssertionError):
         agent.model.score(torch.zeros(2, 128), torch.zeros(2, 9), torch.ones(2, 1))
