@@ -138,6 +138,12 @@ Phases, one JSON line each:
             distilled step it teaches, dino='global' score and energy with
             ranking, quat_wxyz, pointnet_and_pointnet2; each kernel run held
             against its plain version, launches exact;
+  parallel  (after modes) data-parallel training on the card
+            (genpose2_tpu_torch/parallel/): one NCCL rank bit for bit the
+            mesh-less steps, two gloo ranks on cuda:0 against one process on
+            the whole batch, cli train --data_parallel 2, trace_context,
+            StageTimer, the eval hook's grid, export_mitsuba_xml; launches
+            exact on every rank;
   timing    CUDA-event times of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the main
             paths' shapes, with the bound from this run's shapes and data; the
@@ -331,6 +337,146 @@ def no_dropout(cfg):
 
     pn2 = dataclasses.replace(cfg.model.pointnet2, dropout=0.0, input_jitter=0.0)
     return cfg.replace(model=dataclasses.replace(cfg.model, pointnet2=pn2))
+
+
+def nudged_mesh(dev):
+    """A one-rank mesh whose BatchNorm moments are nudged by 3e-7 of
+    themselves, about float32's rounding: one process's own spread."""
+    from genpose2_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(1, 1, 0, 0, dev)
+    mesh.batch_moments = lambda mean, msq: (mean * (1 + 3e-7), msq * (1 + 3e-7))
+    return mesh
+
+
+def state_groups(state):
+    return {"params": state.params, "buffers": state.buffers, "ema": state.ema_params}
+
+
+def update_errors(now, want, start):
+    """Per group: ||now - want|| / ||want - start|| (the update against the
+    reference update) and max|now - want| / max|want|."""
+    out = {}
+    for key in want:
+        diff = sum(float(((now[key][k].double() - want[key][k].to(now[key][k].device).double())
+                          ** 2).sum()) for k in want[key])
+        ref = sum(float(((want[key][k].double() - start[key][k].to(want[key][k].device).double())
+                         ** 2).sum()) for k in want[key])
+        worst = max(float((now[key][k].double() - want[key][k].to(now[key][k].device).double())
+                          .abs().max()) for k in want[key])
+        top = max(float(want[key][k].abs().max()) for k in want[key])
+        out[key] = {"update_err_norm_rel": math.sqrt(diff / max(ref, 1e-300)),
+                    "err_over_max": worst / max(top, 1e-30)}
+    return out
+
+
+def parallel_rank(path):
+    """One rank of the parallel phase's two gloo ranks on one card: rank 0
+    loads the start state from ``path`` (each rank first initialises an agent
+    of its own), ``replicate`` broadcasts it, then PAR_STEPS steps on this
+    rank's half of each global batch with its rows of the global DSM draws
+    (``train_step``'s body, split to read the averaged gradients), each
+    step's launches counted, and one more step with the collectives timed.
+    Before each step, the same step of one process on the whole batch from
+    the same state and generator state (no mesh; its loss, gradients and
+    BatchNorm batch statistics). Returns per step the loss, the statistics
+    and the gradients against that one-process step; after PAR_STEPS steps
+    the update of the parameters, buffers and EMA against the one-process
+    run that ``path`` holds (``update_errors``); the step times and
+    launches, the collectives' counts, bytes and ms, and the peak memory;
+    and at the start state one process's own gradient spread (its
+    statistics nudged, no update)."""
+    import torch
+
+    from genpose2_tpu_torch.ops import _cuda
+    from genpose2_tpu_torch.parallel.distributed import rank
+    from genpose2_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch, use_mesh
+    from genpose2_tpu_torch.training.agent import PoseAgent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    blob = torch.load(path, weights_only=False)
+    mesh = make_mesh()
+    dev, r = mesh.device, rank()
+    torch.manual_seed(1000 + r)  # a rank's own initialisation, replaced by rank 0's
+    agent = PoseAgent(blob["cfg"], "score", device=dev)
+    state = agent.init_state()
+    if r == 0:
+        with torch.no_grad():
+            agent.model.load_state_dict(blob["model"])
+            agent.provider.vit.load_state_dict(blob["vit"])
+            for t, v in zip(_state_list(state), blob["start"]):
+                t.copy_(v)
+    replicate([state, agent.model, agent.provider.vit], mesh)
+    start = {key: {k: v.detach().clone() for k, v in group.items()}
+             for key, group in state_groups(state).items()}
+    g = torch.Generator(dev).manual_seed(blob["seed"])
+    n = blob["batches"][0]["pts"].shape[0] // mesh.data
+    rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+
+    def grad_errs(grads, want):
+        pairs = [(a, b) for a, b in zip(grads, want) if b is not None]
+        top = max(float(b.abs().max()) for _, b in pairs)
+        return (max(float((a - b).abs().max()) for a, b in pairs) / top,
+                math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+                          / sum(float((b ** 2).sum()) for _, b in pairs)))
+
+    # one process's own spread: its gradients at the start state with the
+    # BatchNorm moments nudged (no update)
+    whole = {k: v.to(dev) for k, v in blob["batches"][0].items()}
+    whole_draws = {k: v.to(dev) for k, v in blob["draws"][0].items()}
+    seeded = g.get_state()
+    _, _, g_one, _ = agent.loss_and_grads(state, whole, g, whole_draws)
+    g.set_state(seeded)
+    with use_mesh(nudged_mesh(dev)):
+        _, _, g_nudged, _ = agent.loss_and_grads(state, whole, g, whole_draws)
+    g.set_state(seeded)
+    spread = grad_errs(list(g_nudged.values()), list(g_one.values()))
+    del whole, g_one, g_nudged
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for i in range(len(blob["batches"]) + 1):
+        whole = {k: v.to(dev) for k, v in blob["batches"][i % len(blob["batches"])].items()}
+        whole_draws = {k: v.to(dev) for k, v in blob["draws"][i % len(blob["draws"])].items()}
+        batch = shard_batch(whole, mesh)
+        draws = {k: v[:, rows] for k, v in whole_draws.items()}
+        seeded = g.get_state()
+        l_one, _, g_one, bn_one = agent.loss_and_grads(state, whole, g, whole_draws)
+        g.set_state(seeded)
+        mesh.time_collectives = i == len(blob["batches"])  # the extra step
+        mesh.stats.clear()
+        torch.cuda.synchronize(dev)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            loss, m, grads, bn_stats = agent.loss_and_grads(state, batch, g, draws)
+            loss, m, grads = agent.data_parallel_mean(state, loss, m, grads.values())
+            agent.apply_gradients(state, loss, grads, bn_stats)
+        loss = float(loss)
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: _cuda.launch_counts[k] for k in _cuda.KERNELS}
+        l_one = float(l_one.detach())
+        g_max, g_norm = grad_errs(grads, list(g_one.values()))
+        stats = [(a, b) for bn in bn_one for a, b in zip(bn_stats[bn], bn_one[bn])]
+        steps.append({"ms": ms, "loss": loss, "one_process_loss": l_one,
+                      "loss_rel": abs(loss - l_one) / abs(l_one),
+                      "bn_stats_err_over_max": max(float((a - b).abs().max()) for a, b in stats)
+                      / max(float(b.abs().max()) for _, b in stats),
+                      "grad_err_over_max": g_max, "grad_err_norm_rel": g_norm,
+                      "launches": launches,
+                      "collectives": {k: dict(v) for k, v in mesh.stats.items()}})
+        del g_one, grads, stats
+        if i == len(blob["batches"]) - 1:  # the compared state, before the timed step
+            errs = update_errors(state_groups(state), blob["want"], start)
+    return {"rank": r, "device": str(dev), "steps": steps, "state_errors": errs,
+            "one_process_grad_spread": {"over_max": spread[0], "norm_rel": spread[1]},
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def _state_list(st):
+    return [*st.params.values(), *st.buffers.values(), *st.ema_params.values(),
+            *st.opt_state["mu"], *st.opt_state["nu"]]
 
 
 def main():
@@ -1347,6 +1493,7 @@ def main():
                 t.copy_(v)
 
     train_agents = {}
+    train_starts = {}  # each setting's state before its first step
 
     @phase("train")
     def train():
@@ -1359,6 +1506,7 @@ def main():
             state = agent.init_state()
             train_agents[setting] = (agent, state)
             start = clone_state(state)
+            train_starts[setting] = start
             g = torch.Generator(device=dev).manual_seed(SEED + 1)
             steps = []
             for _ in range(TRAIN_STEPS):
@@ -2799,6 +2947,285 @@ def main():
             raise AssertionError("a modes check failed")
 
     modes()
+
+    # ---------------------------------------------------------------- parallel
+    PAR_STEPS, PAR_FRAMES = 3, 16
+
+    @phase("parallel")
+    def parallel():
+        """Data-parallel training (genpose2_tpu_torch/parallel/) on the one
+        card: (a) one NCCL rank through initialize_multihost's torchrun path,
+        Trainer(mesh=make_mesh()) for PAR_STEPS float32-setting score steps at
+        B = 64 from the train phase's start state and generator seed, bit for
+        bit the mesh-less steps; (b) two gloo ranks on cuda:0 from the
+        launcher of cli train --data_parallel, 32 rows each, explicit DSM
+        draws cut from one global draw, within the train phase's bounds of one
+        process on the whole batch; (c) cli train --data_parallel 2 for one
+        score epoch over a fabricated Omni6DPose dataset; (d) trace_context,
+        StageTimer, the eval hook's image grid, export_mitsuba_xml. Each step's
+        launches exact; step times, the collectives' counts, bytes and ms
+        (each timed alone in one extra step), peak memory."""
+        import importlib.util
+        import tempfile
+
+        from genpose2_tpu_torch import cli
+        from genpose2_tpu_torch.parallel.distributed import initialize_multihost, shutdown
+        from genpose2_tpu_torch.parallel.launch import free_port, launch
+        from genpose2_tpu_torch.parallel.mesh import make_mesh, use_mesh
+        from genpose2_tpu_torch.training.eval_hooks import make_sampling_eval_fn
+        from genpose2_tpu_torch.training.trainer import Trainer
+        from genpose2_tpu_torch.utils.profiling import StageTimer, trace_context
+        from genpose2_tpu_torch.utils.visualize import export_mitsuba_xml
+
+        ok = True
+        t_phase = time.perf_counter()
+        cfg = train_config("float32")
+        agent0, state0 = train_agents["float32"]
+        start, now = train_starts["float32"], clone_state(state0)
+        want = train_counts(True)
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        tmp = tempfile.TemporaryDirectory()
+        try:
+            # (a) the mesh-less steps, then one NCCL rank
+            batches = [train_batch() for _ in range(PAR_STEPS)]
+            restore_state(state0, start)
+            g = torch.Generator(dev).manual_seed(SEED + 1)
+            ref = [float(counted(lambda: agent0.train_step(state0, b, g))[0][1]["loss"])
+                   for b in batches]
+            ref_state = clone_state(state0)
+            torchrun = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                            WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+            os.environ.update(torchrun)
+            try:
+                if not initialize_multihost():
+                    raise AssertionError("initialize_multihost did not start a group")
+                backend = torch.distributed.get_backend()
+                mesh = make_mesh()
+                torch.manual_seed(SEED + 5)
+                tr = Trainer(cfg, "score", 1000, log_dir=os.path.join(tmp.name, "a"), mesh=mesh)
+                with torch.no_grad():
+                    tr.agent.model.load_state_dict(agent0.model.state_dict())
+                    tr.agent.provider.vit.load_state_dict(agent0.provider.vit.state_dict())
+                tr.init()
+                restore_state(tr.state, start)
+                g = torch.Generator(dev).manual_seed(SEED + 1)
+                steps = []
+                for b in batches:
+                    m, ms, counts = counted(lambda: tr.train_epoch([b], g))
+                    steps.append({"ms": ms, "loss": float(m["loss"]), "launches": counts})
+                same = [torch.equal(a, b) for a, b in zip(state_tensors(tr.state),
+                                                         ref_state["tensors"])]
+                mesh.time_collectives = True
+                mesh.stats.clear()
+                counted(lambda: tr.train_epoch([batches[0]], g))
+                coll = {k: dict(v) for k, v in mesh.stats.items()}
+            finally:
+                shutdown()
+                for k in torchrun:
+                    os.environ.pop(k, None)
+            good = (backend == "nccl" and [s["loss"] for s in steps] == ref and all(same)
+                    and all(s["launches"] == want for s in steps))
+            ok = ok and good
+            emit({"phase": "parallel", "check": "one_nccl_rank", "ok": good, "backend": backend,
+                  "device": str(mesh.device), "losses": [s["loss"] for s in steps],
+                  "mesh_less_losses": ref, "identical": sum(same), "of": len(same),
+                  "step_ms": [s["ms"] for s in steps],
+                  "warm_step_ms_median": med([s["ms"] for s in steps[1:]]),
+                  "launches_per_step": [s["launches"] for s in steps], "expected": want,
+                  "collectives_timed_step": coll})
+            del tr
+
+            # (b) two gloo ranks on the card against one process on the whole batch
+            R = cfg.train.repeat_num
+            draws = []
+            for _ in range(PAR_STEPS):
+                t = torch.rand(R, B, 1, generator=gen) * (1.0 - agent0.sde.eps) + agent0.sde.eps
+                draws.append({"t": t, "z": torch.randn(R, B, 9, generator=gen)})
+            restore_state(state0, start)
+            start_groups = {key: {k: v.detach().cpu() for k, v in grp.items()}
+                            for key, grp in state_groups(state0).items()}
+
+            def one_process(mesh_=None):
+                """PAR_STEPS steps of one process on the whole batch from the
+                start: the losses and step ms (under ``mesh_``)."""
+                restore_state(state0, start)
+                g = torch.Generator(dev).manual_seed(SEED + 3)
+                out = []
+                with use_mesh(mesh_):
+                    for b, d in zip(batches, draws):
+                        (_, m), ms, _ = counted(lambda: agent0.train_step(
+                            state0, b, g, {k: v.to(dev) for k, v in d.items()}))
+                        out.append({"loss": float(m["loss"]), "ms": ms})
+                return out
+
+            ref_b = one_process()
+            want_b = {key: {k: v.detach().cpu() for k, v in grp.items()}
+                      for key, grp in state_groups(state0).items()}
+            # one process's own spread along the trajectory: the same steps
+            # with its BatchNorm moments nudged by 3e-7 of themselves
+            nudged_b = one_process(nudged_mesh(dev))
+            self_errs = update_errors(state_groups(state0), want_b, start_groups)
+            path = os.path.join(tmp.name, "parallel_b.pt")
+            torch.save({"cfg": cfg, "seed": SEED + 3, "start": start["tensors"],
+                        "model": agent0.model.state_dict(), "vit": agent0.provider.vit.state_dict(),
+                        "batches": [{k: v.cpu() for k, v in b.items()} for b in batches],
+                        "draws": draws, "want": want_b}, path)
+            del start_groups, want_b
+            torch.cuda.empty_cache()  # the ranks share the card with this process
+            t0 = time.perf_counter()
+            ranks = launch(parallel_rank, 2, (path,), timeout_s=420)
+            launch_s = time.perf_counter() - t0
+            # each step against one process's step on the whole batch from the
+            # same state: the loss within the train phase's kernel-vs-plain
+            # bound, the BatchNorm batch statistics (what moves the buffers)
+            # within its 5e-4 of the largest entry; the gradients' norm error
+            # within 5e-4 or four times one process's own spread (its
+            # gradients' response to the statistics nudged by 3e-7: float32
+            # rounding flips max-pool argmaxes, 0.87% at the flagship's random
+            # weights, PERF.md PR 16; a BatchNorm all-reduce without its
+            # backward sum is off by ~40%). After PAR_STEPS steps, from the
+            # same start, the update of the parameters, the buffers and the
+            # EMA against one process's, ||ranks - one|| / ||one - start||,
+            # within 5e-4 or four times one process's own spread along the
+            # same steps (Adam turns a sign flip of a near-zero gradient into
+            # a full step of lr), and under 0.5: an update left out is 1; the
+            # buffers within 5e-4 of their largest entry, the train bound;
+            # the losses along the trajectory within 1e-5 or four times that
+            # spread's
+            def spread_tol(x, floor):
+                return max(floor, 4 * x)
+
+            tol = {"loss_rel": 1e-5, "bn_stats_err_over_max": 5e-4,
+                   "grad_err_norm_rel": "max(5e-4, 4 x one_process_grad_spread)",
+                   "update_err_norm_rel": {key: min(0.5, spread_tol(e["update_err_norm_rel"],
+                                                                    5e-4))
+                                           for key, e in self_errs.items()},
+                   "buffers_err_over_max": 5e-4,
+                   "trajectory_loss_rel": [spread_tol(abs(n_["loss"] - w["loss"]) / abs(w["loss"]),
+                                                      1e-5) for n_, w in zip(nudged_b, ref_b)]}
+            good = True
+            for rk in ranks:
+                grad_tol = max(5e-4, 4 * rk["one_process_grad_spread"]["norm_rel"])
+                rk["trajectory_loss_rel"] = [abs(s["loss"] - w["loss"]) / abs(w["loss"])
+                                             for s, w in zip(rk["steps"], ref_b)]
+                good = (good and all(s["launches"] == want for s in rk["steps"])
+                        and all(s["loss_rel"] <= tol["loss_rel"]
+                                and s["bn_stats_err_over_max"] <= tol["bn_stats_err_over_max"]
+                                and s["grad_err_norm_rel"] <= grad_tol
+                                for s in rk["steps"])
+                        and all(rk["state_errors"][key]["update_err_norm_rel"] <= bound
+                                for key, bound in tol["update_err_norm_rel"].items())
+                        and (rk["state_errors"]["buffers"]["err_over_max"]
+                             <= tol["buffers_err_over_max"])
+                        and all(e <= t for e, t in zip(rk["trajectory_loss_rel"],
+                                                       tol["trajectory_loss_rel"])))
+            ok = ok and good
+            emit({"phase": "parallel", "check": "two_gloo_ranks_one_card", "ok": good,
+                  "batch": B, "rows_a_rank": B // 2, "tolerance": tol, "launch_s": launch_s,
+                  "one_process": {"losses": [w["loss"] for w in ref_b],
+                                  "step_ms": [w["ms"] for w in ref_b],
+                                  "warm_step_ms_median": med([w["ms"] for w in ref_b[1:]]),
+                                  "nudged_losses": [w["loss"] for w in nudged_b],
+                                  "nudged_state_errors": self_errs},
+                  "ranks": [{"rank": rk["rank"], "device": rk["device"],
+                             "losses": [s["loss"] for s in rk["steps"][:PAR_STEPS]],
+                             "trajectory_loss_rel": rk["trajectory_loss_rel"],
+                             "step_loss_rel": [s["loss_rel"] for s in rk["steps"]],
+                             "step_bn_stats_err_over_max": [s["bn_stats_err_over_max"]
+                                                            for s in rk["steps"]],
+                             "step_grad_err_over_max": [s["grad_err_over_max"]
+                                                        for s in rk["steps"]],
+                             "step_grad_err_norm_rel": [s["grad_err_norm_rel"]
+                                                        for s in rk["steps"]],
+                             "step_ms": [s["ms"] for s in rk["steps"][:PAR_STEPS]],
+                             "warm_step_ms_median": med([s["ms"] for s in
+                                                         rk["steps"][1:PAR_STEPS]]),
+                             "state_errors": rk["state_errors"],
+                             "one_process_grad_spread": rk["one_process_grad_spread"],
+                             "launches_per_step": rk["steps"][0]["launches"],
+                             "collectives_a_step": rk["steps"][0]["collectives"],
+                             "collectives_timed_step": rk["steps"][-1]["collectives"],
+                             "timed_step_ms": rk["steps"][-1]["ms"],
+                             "max_memory_allocated_gib": rk["max_memory_allocated_gib"]}
+                            for rk in ranks]})
+
+            # (c) the command line: two ranks, one score epoch from files on disk
+            data = synthetic_frame.write_dataset(
+                os.path.join(tmp.name, "data"), np.random.default_rng(SEED), PAR_FRAMES,
+                CLI_OBJECTS, videos=0)
+            log_dir = os.path.join(tmp.name, "c")
+            t0 = time.perf_counter()
+            summaries = cli.main(["train", "--data_parallel", "2", "--agent_type", "score",
+                                  "--source", "Omni6DPose", "--data_path", data["frames"],
+                                  "--dino", "pointwise", "--batch_size", str(B), "--seed",
+                                  str(SEED), "--n_epochs", "1", "--log_dir", log_dir])
+            cli_s = time.perf_counter() - t0
+            ckpts = sorted(os.listdir(os.path.join(log_dir, "ckpt")))
+            good = (ckpts == ["epoch_1", "final"] and len(summaries) == 2
+                    and summaries[0]["ema_checksum"] == summaries[1]["ema_checksum"]
+                    and all(math.isfinite(s_["loss"]) and s_["step"] >= 1 for s_ in summaries))
+            ok = ok and good
+            emit({"phase": "parallel", "check": "cli_data_parallel_2", "ok": good,
+                  "checkpoints": ckpts, "ranks": summaries, "seconds": cli_s})
+
+            # (d) the utilities
+            restore_state(state0, now)
+            b = train_batch()
+            g = torch.Generator(dev).manual_seed(SEED + 4)
+            with trace_context(os.path.join(tmp.name, "trace")) as trace_path:
+                agent0.train_step(state0, b, g)
+            with open(trace_path) as f:
+                names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+            kernel_names = {"fps": ("fps_kernel",), "ball_query": ("ball_query_kernel",),
+                            "vit_attention": ("vit_attention_bf16",),
+                            "add_layernorm": ("ln_vec_kernel", "ln_kernel")}
+            found = {k: any(s_ in nm for s_ in subs for nm in names)
+                     for k, subs in kernel_names.items()}
+            timer, event_ms = StageTimer(), 0.0
+            for _ in range(3):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                out = {}
+                with timer.stage("step", sync_on=out):
+                    e0.record()
+                    out["m"] = agent0.train_step(state0, b, g)[1]["loss"]
+                    e1.record()
+                event_ms += e0.elapsed_time(e1)
+            timer_ms = 1e3 * timer.totals["step"]
+            have = {m_: importlib.util.find_spec(m_) is not None for m_ in ("matplotlib", "cv2")}
+            tiny = tiny_test_config()
+            hook_tr = Trainer(tiny, "score", 1, device=dev, log_dir=os.path.join(tmp.name, "d"))
+            hook_tr.init()
+            sd = SyntheticPoseData(num_points=tiny.model.num_points)
+            eval_b = sd.batch(torch.Generator(dev).manual_seed(3), 4)
+            hook = make_sampling_eval_fn(hook_tr.agent, tiny, lambda e: eval_b,
+                                         log_dir=os.path.join(tmp.name, "d"), repeat_num=4,
+                                         num_steps=5)
+            hook_tr.fit(lambda e: [sd.batch(torch.Generator(dev).manual_seed(e), 4)],
+                        epochs=1, eval_fn=hook)
+            with open(os.path.join(tmp.name, "d", "score_metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            evals = [r_ for r_ in recs if "eval_deg_mean" in r_]
+            png = os.path.exists(os.path.join(tmp.name, "d", "eval_img", "epoch_1.png"))
+            hook_ok = (len(evals) == 1 and hook_tr.state.step == 1
+                       and (png if have["matplotlib"] else "eval_image_error" in evals[0]))
+            xml = export_mitsuba_xml(b["pts"][0], os.path.join(tmp.name, "scene.xml"))
+            good = (all(found.values()) and abs(timer_ms - event_ms) <= 0.1 * event_ms
+                    and hook_ok and xml.count('<shape type="sphere">') == N)
+            ok = ok and good
+            emit({"phase": "parallel", "check": "utilities", "ok": good,
+                  "trace_bytes": os.path.getsize(trace_path), "trace_names_kernels": found,
+                  "stage_timer_ms": timer_ms, "cuda_event_ms": event_ms, "found": have,
+                  "eval_hook": {k: evals[0][k] for k in evals[0]
+                                if k.startswith("eval_")} if evals else None,
+                  "eval_png": png, "mitsuba_xml_bytes": len(xml),
+                  "phase_seconds": time.perf_counter() - t_phase})
+        finally:
+            restore_state(state0, now)
+            tmp.cleanup()
+        if not ok:
+            raise AssertionError("a parallel check failed")
+
+    parallel()
 
     # ------------------------------------------------------------------ timing
     table = []

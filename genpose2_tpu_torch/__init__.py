@@ -6,7 +6,8 @@ is a copy of its own. Every Pallas kernel on the ported path is a CUDA C++
 kernel under ``ops/csrc/``, built by ``nvcc`` at first use (``ops/_cuda.py``).
 
 Entry points: ``api.GenPose2`` (frames), ``eval/`` (evaluation and
-tracking), ``training/`` (the agents and the ``Trainer``) and ``cli``
-(train, eval and track from files on disk). ROADMAP.md lists what is still
-to port.
+tracking), ``training/`` (the agents and the ``Trainer``), ``cli`` (train,
+eval and track from files on disk; data-parallel training over
+``parallel/``) and ``demo``. ROADMAP.md says what is deliberately not
+ported.
 """

@@ -16,13 +16,25 @@ in ``--pose_mode``; the JAX CLI's synthetic batches stay 9-D whatever the
 mode). A file
 source's epoch is one pass of its ``DataLoader``, and the trainer counts
 that pass's steps as its epoch (the JAX CLI keeps ``--steps_per_epoch``
-there). ``--data_parallel`` other than 1 and ``--multihost`` raise until
-``parallel/`` is ported (ROADMAP.md queue 1, parallel and utilities).
+there).
+
+Data-parallel training runs one rank (process) a GPU (``parallel/``):
+``train --data_parallel N`` starts N ranks on this machine, over NCCL where
+each has a GPU of its own and gloo where they share one or run on the CPU;
+``train --multihost --coordinator HOST:PORT --num_hosts W --host_id R`` makes
+this process rank R of W (one a GPU; torchrun's variables work too).
+``--batch_size`` is the global batch: each rank draws the synthetic batch
+whole and keeps its rows, or loads its shard of a file source's batches, and
+a world size that does not divide it raises. Rank 0 writes the log and the
+checkpoints; the in-training sampling evaluation runs only in a
+one-process run, as in the JAX CLI. ``eval`` and ``track`` run on one
+device whatever the flags say (the JAX CLI builds no mesh there).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from itertools import chain
 from typing import Optional
@@ -32,6 +44,7 @@ import torch
 from genpose2_tpu_torch.config import (Config, DataConfig, EvalConfig, ModelConfig,
                                        SamplerConfig, SDEConfig, TrainConfig)
 from genpose2_tpu_torch.device import resolve_device
+from genpose2_tpu_torch.parallel.distributed import host_local_slice, rank, world_size
 
 
 def build_config(args) -> Config:
@@ -115,9 +128,11 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     # resume training from a whole-state checkpoint
     p.add_argument("--use_pretrain", action="store_true")
     p.add_argument("--pretrain_path", type=str, default=None)
-    # kept for the JAX CLI's command lines: only 1 device and 1 host run here
+    # train: N ranks on this machine, one a GPU (eval and track run on one device)
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--scan_chunk", type=int, default=8)
+    # train: this process is one rank of a group (one GPU; on a host of several
+    # GPUs start one process a GPU with LOCAL_RANK / LOCAL_WORLD_SIZE set)
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--coordinator", type=str, default=None)
     p.add_argument("--num_hosts", type=int, default=None)
@@ -126,20 +141,26 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", type=str, default=None)
 
 
-def _check_single_device(args) -> None:
-    if args.data_parallel != 1 or args.multihost:
-        raise NotImplementedError("--data_parallel other than 1 and --multihost need parallel/, "
-                                  "not ported yet (ROADMAP.md queue 1, parallel and "
-                                  "utilities)")
+def _check_divides(batch_size: int, world: int) -> None:
+    if batch_size % world:
+        raise ValueError(f"batch_size={batch_size} is the GLOBAL batch size and must be "
+                         f"divisible by the {world} ranks; a remainder would silently shrink "
+                         "the effective global batch")
 
 
 def make_loader_fn(cfg: Config, mode: str, agent_type: str = "score", device=None):
     """epoch -> the epoch's batches. Synthetic: ``steps_per_epoch`` prepared
     batches on ``device``, batch i of epoch e from a generator seeded with
     e * 1000 + i; a file source: a ``DataLoader`` over its dataset, shuffled
-    with seed cfg.train.seed + epoch when training (collated raw batches)."""
+    with seed cfg.train.seed + epoch when training (collated raw batches).
+    In a process group cfg.train.batch_size is the global batch and each rank
+    gets its rows: the synthetic batch is drawn whole on every rank and
+    sliced (``host_local_slice``), a file source's ``DataLoader`` loads this
+    rank's shard."""
     from genpose2_tpu_torch.data.loader import DataLoader
 
+    world = world_size()
+    _check_divides(cfg.train.batch_size, world)
     if cfg.data.source == "synthetic":
         from genpose2_tpu_torch.data.synthetic import SyntheticPoseData
         from genpose2_tpu_torch.so3.noise import add_noise_to_R
@@ -161,6 +182,9 @@ def make_loader_fn(cfg: Config, mode: str, agent_type: str = "score", device=Non
                     B = b["gt_rotation"].shape[0]
                     rep = b["gt_rotation"].repeat_interleave(S, 0)
                     b = dict(b, axes_training=add_noise_to_R(rep, 10.0, g).reshape(B, S, 3, 3))
+                if world > 1:
+                    sl = host_local_slice(cfg.train.batch_size)
+                    b = {k: v[sl] for k, v in b.items()}
                 yield b
 
         return synthetic_fn
@@ -180,8 +204,8 @@ def make_loader_fn(cfg: Config, mode: str, agent_type: str = "score", device=Non
         ds = Omni6DPoseDataset(cfg.data, mode=mode, agent_type=agent_type)
 
     def loader_fn(epoch):
-        return DataLoader(ds, cfg.train.batch_size, shuffle=(mode == "train"),
-                          seed=cfg.train.seed + epoch)
+        return DataLoader(ds, cfg.train.batch_size // world, shuffle=(mode == "train"),
+                          seed=cfg.train.seed + epoch, shard_index=rank(), num_shards=world)
 
     return loader_fn
 
@@ -206,13 +230,47 @@ def _frozen_score(cfg: Config, path: str, device, steps_per_epoch: int = 1000):
 
 
 def cmd_train(args):
-    """Train one agent; returns the Trainer."""
-    _check_single_device(args)
+    """Train one agent; returns the Trainer, or with ``--data_parallel`` N > 1
+    each rank's summary (``_train_rank``) in rank order."""
+    if args.multihost:
+        from genpose2_tpu_torch.parallel.distributed import initialize_multihost
+
+        if args.data_parallel != 1:
+            raise ValueError("--multihost makes this process one rank (one GPU); start one "
+                             "process a GPU and leave --data_parallel at 1")
+        initialize_multihost(args.coordinator, args.num_hosts, args.host_id, device=args.device)
+    elif args.data_parallel > 1:
+        from genpose2_tpu_torch.parallel.launch import launch
+
+        _check_divides(args.batch_size, args.data_parallel)
+        return launch(_train_rank, args.data_parallel, (args,), device=args.device)
+    return _train(args)
+
+
+def _train_rank(args) -> dict:
+    """One rank of ``train --data_parallel N``: its summary line's values."""
+    return _summary(_train(args))
+
+
+def _summary(trainer) -> dict:
+    """A rank's step, last loss and EMA checksum (equal on every rank)."""
+    state, loss = trainer.state, trainer.last_metrics.get("loss")
+    return {"rank": rank(), "world": world_size(), "step": int(state.step),
+            "loss": None if loss is None else float(loss),
+            "ema_checksum": float(sum(p.double().abs().sum() for p in state.ema_params.values()))}
+
+
+def _train(args):
     cfg = build_config(args)
     from genpose2_tpu_torch.training.eval_hooks import make_sampling_eval_fn
     from genpose2_tpu_torch.training.trainer import Trainer
 
-    device = resolve_device(args.device)
+    mesh = None
+    if world_size() > 1:
+        from genpose2_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     base_loader = make_loader_fn(cfg, "train", args.agent_type, device)
     if cfg.data.source == "synthetic":
         steps_per_epoch = args.steps_per_epoch
@@ -227,23 +285,25 @@ def cmd_train(args):
         frozen = _frozen_score(cfg, args.score_ckpt, device, steps_per_epoch)
     trainer = Trainer(cfg, args.agent_type, steps_per_epoch, frozen_score=frozen, device=device,
                       log_dir=args.log_dir, score_ckpt=args.score_ckpt,
-                      resume_from=args.pretrain_path if args.use_pretrain else None)
+                      resume_from=args.pretrain_path if args.use_pretrain else None, mesh=mesh)
     sample = next(iter(loader_fn(0))) if args.agent_type == "scale" else None
     trainer.init(sample)
 
-    # the in-training sampling evaluation on a held-out batch
+    # the in-training sampling evaluation on a held-out batch (one process)
     eval_fn = None
-    if args.agent_type != "scale":
+    if args.agent_type != "scale" and mesh is None:
         eval_loader_fn = make_loader_fn(cfg, "test", args.agent_type, device)
         proc = _processed(cfg, device)
 
         def eval_batch_fn(epoch):
             return proc(next(iter(eval_loader_fn(10_000 + epoch))))
 
-        eval_fn = make_sampling_eval_fn(trainer.agent, cfg, eval_batch_fn,
+        eval_fn = make_sampling_eval_fn(trainer.agent, cfg, eval_batch_fn, log_dir=args.log_dir,
                                         repeat_num=min(10, cfg.eval.eval_repeat_num),
                                         num_steps=cfg.sampler.sampling_steps)
     trainer.fit(loader_fn, eval_fn=eval_fn)
+    if mesh is not None:  # each rank's line, one write: the ranks share stdout
+        print("train_rank " + json.dumps(_summary(trainer)) + "\n", end="", flush=True)
     return trainer
 
 
@@ -280,7 +340,6 @@ def cmd_eval(args):
     """Evaluate the three agents over the test split, one batch at a time
     (``SingleFrameEvaluator.run_streaming``, caches and metrics.json in
     ``<log_dir>/eval``); returns the PoseMetrics."""
-    _check_single_device(args)
     cfg = build_config(args)
     from genpose2_tpu_torch.eval.pipeline import SingleFrameEvaluator
 
@@ -305,7 +364,6 @@ def cmd_track(args):
     """Track every video under --data_path (one folder each; failures go to
     ``<log_dir>/tracking_fail.txt``), multiplexed under an object budget of
     --batch_size; returns the PoseMetrics."""
-    _check_single_device(args)
     cfg = build_config(args)
     from genpose2_tpu_torch.data.loader import process_batch
     from genpose2_tpu_torch.data.tracking import open_video_datasets

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from genpose2_tpu_torch.parallel.mesh import batch_rand, batch_randn
 from genpose2_tpu_torch.so3.rotations import euler_zyx_to_matrix
 
 
@@ -80,8 +81,8 @@ def random_rt_params(batch: int, generator: Optional[torch.Generator] = None, de
                      t_std: float = 0.02, r_deg: float = 15.0):
     """The rigid jitter's translation N(0, t_std) (B, 3) and rotation from ZYX
     angles U(-r_deg, r_deg) degrees (B, 3, 3)."""
-    aug_t = torch.randn(batch, 3, generator=generator, device=device) * t_std
-    angles = (torch.rand(batch, 3, generator=generator, device=device) * 2 - 1)
+    aug_t = batch_randn((batch, 3), generator, device) * t_std
+    angles = (batch_rand((batch, 3), generator, device) * 2 - 1)
     return aug_t, euler_zyx_to_matrix(angles * math.radians(r_deg))
 
 
@@ -91,9 +92,9 @@ def draw_params(batch: int, n: int, generator: Optional[torch.Generator] = None,
     points, in this order: the four gates U(0, 1) (B, 1), the box factors
     U(0.8, 1.2) (B, 3), the rigid jitter (``random_rt_params``), the cage's
     ey_up and ey_down U(0.8, 1.2) (B, 1) and the radial jitter's U(0, 1)
-    (B, N, 3)."""
+    (B, N, 3). Under a mesh, this rank's rows of the global batch's draws."""
     def u(*shape):
-        return torch.rand(*shape, generator=generator, device=device)
+        return batch_rand(shape, generator, device)
 
     d = {"gate_bb": u(batch, 1), "aug_bb": u(batch, 3) * 0.4 + 0.8, "gate_rt": u(batch, 1)}
     d["aug_t"], d["aug_R"] = random_rt_params(batch, generator, device)

@@ -16,15 +16,17 @@ from typing import Callable, Optional
 import torch
 
 from genpose2_tpu_torch.diffusion.sde import SDE
+from genpose2_tpu_torch.parallel.mesh import batch_rand, batch_randn
 
 
 def dsm_draws(batch: int, dim: int, sde: SDE, repeat: int,
               generator: Optional[torch.Generator], device=None):
     """``repeat`` draws of t ~ U(eps, 1) (repeat, B, 1) and z ~ N(0, 1)
-    (repeat, B, D) from ``generator``."""
-    t = torch.rand((repeat, batch, 1), generator=generator, device=device)
+    (repeat, B, D) from ``generator`` (under a mesh, this rank's rows of the
+    global batch's draws: the batch axis is axis 1)."""
+    t = batch_rand((repeat, batch, 1), generator, device, batch_axis=1)
     t = t * (1.0 - sde.eps) + sde.eps
-    z = torch.randn((repeat, batch, dim), generator=generator, device=device)
+    z = batch_randn((repeat, batch, dim), generator, device, batch_axis=1)
     return t, z
 
 
@@ -54,9 +56,10 @@ def dsm_loss(score_fn: Callable, gt_pose: torch.Tensor, sde: SDE, t: torch.Tenso
 def edm_draws(batch: int, dim: int, repeat: int, generator: Optional[torch.Generator],
               device=None):
     """``repeat`` draws of z ~ N(0, 1) (repeat, B, D) and u ~ U(0, 1)
-    (repeat, B, 1) from ``generator``, in that order."""
-    z = torch.randn((repeat, batch, dim), generator=generator, device=device)
-    u = torch.rand((repeat, batch, 1), generator=generator, device=device)
+    (repeat, B, 1) from ``generator``, in that order (under a mesh as
+    ``dsm_draws``)."""
+    z = batch_randn((repeat, batch, dim), generator, device, batch_axis=1)
+    u = batch_rand((repeat, batch, 1), generator, device, batch_axis=1)
     return z, u
 
 

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from genpose2_tpu_torch.config import SDEConfig
+from genpose2_tpu_torch.parallel.mesh import batch_randn
 
 
 def _unknown(mode):
@@ -82,9 +83,11 @@ class SDE:
                      generator: Optional[torch.Generator] = None,
                      device=None) -> torch.Tensor:
         """A draw from p_T; for VE, T may be lowered to start the reverse
-        process early. EDM scales N(0, 1) by sigma_max whatever T is."""
+        process early. EDM scales N(0, 1) by sigma_max whatever T is. Under a
+        mesh (a data-parallel step's ranking candidates) the leading axis is
+        the batch's: this rank's rows of the global draw."""
         T = self.T if T is None else T
-        z = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        z = batch_randn(shape, generator, device, dtype=torch.float32)
         if self.mode == "ve":
             return z * self.marginal_std(torch.tensor(T, dtype=torch.float32, device=device))
         if self.mode in ("vp", "subvp"):

@@ -12,7 +12,10 @@ The module (training) forwards follow flax semantics, not torch's:
 moves the running statistics as 0.9 * old + 0.1 * batch with that biased
 variance (``nn.BatchNorm2d`` uses the unbiased one for its running update),
 and ``dropout`` draws its mask from an explicit ``torch.Generator``, so a
-step can be replayed from a seed.
+step can be replayed from a seed. Under a data-parallel mesh
+(``parallel/mesh.py:use_mesh``) ``batch_norm`` takes the global batch's
+statistics and ``dropout`` draws at the global batch's shape, so that the
+ranks together reproduce one process on the whole batch.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from genpose2_tpu_torch.parallel.mesh import active_mesh, batch_rand
 
 
 def MLP(in_dim: int, features: Sequence[int], final_act: bool = False,
@@ -83,15 +88,20 @@ def batch_norm(x: torch.Tensor, bn: nn.Module, train: bool) -> torch.Tensor:
     BatchNorm module's parameters and running statistics.
 
     In train mode it normalises with the statistics of this batch (over every
-    other axis; variance E[x^2] - E[x]^2, biased, clipped at 0) and hands
-    them to the innermost open ``batch_stats()`` collection, if any; the
-    module itself is not changed. In eval mode it uses the running
-    statistics."""
+    other axis; variance E[x^2] - E[x]^2, biased, clipped at 0; under an
+    active mesh E[x] and E[x^2] of the global batch, all-reduced over the
+    data ranks) and hands them to the innermost open ``batch_stats()``
+    collection, if any; the module itself is not changed. In eval mode it
+    uses the running statistics."""
     x = x.float()
     if train:
         dims = tuple(range(x.ndim - 1))
         mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        msq = (x * x).mean(dims)
+        mesh = active_mesh()
+        if mesh is not None:
+            mean, msq = mesh.batch_moments(mean, msq)
+        var = torch.clamp(msq - mean * mean, min=0.0)
         if _COLLECTING:
             _COLLECTING[-1][bn] = (mean.detach(), var.detach())
     else:
@@ -115,7 +125,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     by 1 / (1 - rate); identity in eval mode or at rate 0."""
     if not train or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = batch_rand(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

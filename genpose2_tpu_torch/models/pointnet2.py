@@ -32,6 +32,7 @@ from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
 from genpose2_tpu_torch.ops.grouping import gather_points, group_points
 from genpose2_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from genpose2_tpu_torch.ops.ode_rk4 import compute_dtype_of
+from genpose2_tpu_torch.parallel.mesh import batch_randn
 
 
 def _inputs(xyz, features, use_xyz: bool):
@@ -141,7 +142,7 @@ class PointNet2ClsMSGFus(PointNet2ClsMSG):
         cfg = self.cfg
         dt = compute_dtype_of(cfg.compute_dtype)
         if train and cfg.input_jitter:
-            noise = torch.randn(pointcloud.shape, generator=generator, device=pointcloud.device)
+            noise = batch_randn(pointcloud.shape, generator, pointcloud.device)
             pointcloud = pointcloud + noise * cfg.input_jitter
         xyz = pointcloud[..., :3]
         features = pointcloud[..., 3:]

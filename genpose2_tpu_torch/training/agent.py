@@ -13,7 +13,11 @@ global rgb feature), gradients by autograd, the global-norm clip and Adam or
 SGD step, the EMA update. ``train_step_distilled`` is the same step with a
 teacher's score as the DSM target. A step whose loss is not finite changes
 nothing but the step counter: no parameter, optimizer state, BatchNorm
-statistic or EMA entry.
+statistic or EMA entry. Inside ``parallel/mesh.py:use_mesh`` a step is
+one data-parallel step: each rank's loss over its rows, the global batch's
+BatchNorm statistics and draws, then gradients, loss and metrics averaged
+over the data ranks before the update, so that every rank applies the same
+one.
 
 Each agent owns its network (``.model``) and, with dino='pointwise' or
 'global', its frozen backbone (``.provider.vit``) on its device; weights
@@ -46,6 +50,7 @@ from genpose2_tpu_torch.models.provider import ImageFeatureProvider
 from genpose2_tpu_torch.models.scalenet import ScaleNet, scale_loss
 from genpose2_tpu_torch.models.scorenet import fast_score_weights
 from genpose2_tpu_torch.ops.ode_rk4 import fast_score
+from genpose2_tpu_torch.parallel.mesh import active_mesh, batch_rand
 from genpose2_tpu_torch.training.ema import ema_init, ema_update
 from genpose2_tpu_torch.training.optim import ClippedOptimizer, global_norm, make_lr_schedule
 from genpose2_tpu_torch.training.ranking import ranking_loss, sort_results
@@ -105,6 +110,19 @@ class _Trainable:
                           opt_state=self.optimizer.init(list(params.values())),
                           ema_params=ema_init(params))
 
+    @staticmethod
+    def data_parallel_mean(state: TrainState, loss: torch.Tensor, metrics: dict, grads):
+        """(loss, metrics, gradients as a list over ``state.params``): under an
+        active mesh averaged over its data ranks (the gradients in one
+        flattened buffer, a missing one as zeros), else as they are."""
+        grads = list(grads)
+        mesh = active_mesh()
+        if mesh is None:
+            return loss, metrics, grads
+        grads = mesh.mean_gradients(list(state.params.values()), grads)
+        loss, metrics = mesh.mean_metrics(loss, metrics)
+        return loss, metrics, grads
+
     def apply_gradients(self, state: TrainState, loss: torch.Tensor,
                         grads: Sequence[Optional[torch.Tensor]], bn_stats: dict) -> torch.Tensor:
         """The second half of a step: the NaN guard, the optimizer step, the
@@ -157,9 +175,9 @@ class PoseAgent(_Trainable):
         candidates), ``lr`` and ``grad_norm``. Arguments as
         ``loss_and_grads``."""
         loss, metrics, grads, bn_stats = self.loss_and_grads(state, batch, generator, draws)
+        loss, metrics, grads = self.data_parallel_mean(state, loss, metrics, grads.values())
         lr = self.lr_schedule(state.step)
-        metrics.update(lr=lr, grad_norm=self.apply_gradients(state, loss, grads.values(),
-                                                             bn_stats))
+        metrics.update(lr=lr, grad_norm=self.apply_gradients(state, loss, grads, bn_stats))
         return state, metrics
 
     def train_step_distilled(self, state: TrainState, teacher, batch: dict,
@@ -175,7 +193,8 @@ class PoseAgent(_Trainable):
         Arguments as ``loss_and_grads``."""
         loss, metrics, grads, bn_stats = self.loss_and_grads(state, batch, generator, draws,
                                                              teacher=teacher)
-        self.apply_gradients(state, loss, grads.values(), bn_stats)
+        loss, metrics, grads = self.data_parallel_mean(state, loss, metrics, grads.values())
+        self.apply_gradients(state, loss, grads, bn_stats)
         return state, {"loss": metrics["loss"], "distill_loss": metrics["loss"]}
 
     def loss_and_grads(self, state: TrainState, batch: dict,
@@ -273,7 +292,7 @@ class PoseAgent(_Trainable):
         B, K, D = cand.shape
         if rank_t is None:
             lo, hi = RANK_T
-            rank_t = torch.rand((B * K, 1), generator=generator, device=self.device)
+            rank_t = batch_rand((B * K, 1), generator, self.device)  # object-major rows
             rank_t = rank_t * (hi - lo) + lo
         def rep(x):  # (B, F) -> (B * K, F), object-major
             return None if x is None else x[:, None].expand(B, K, x.shape[-1]).reshape(B * K, -1)
@@ -552,7 +571,8 @@ class ScaleAgent(_Trainable):
         ``axes_training`` (B, S, 3, 3) noised ground-truth axes, ``gt_length``
         (B, 3). Returns (state, {'loss'})."""
         loss, grads = self.loss_and_grads(state, batch)
-        self.apply_gradients(state, loss, grads.values(), {})  # ScaleNet has no BatchNorm
+        loss, _, grads = self.data_parallel_mean(state, loss, {}, grads.values())
+        self.apply_gradients(state, loss, grads, {})  # ScaleNet has no BatchNorm
         return state, {"loss": loss.detach()}
 
     def loss_and_grads(self, state: TrainState, batch: dict):

@@ -9,6 +9,10 @@ model's other state-dict entries under ``constants`` (the fixed random
 Fourier projections, ``num_batches_tracked``) and its frozen backbone's
 weights under ``dino`` (the JAX package keeps both in the state's
 constants). The EMA is saved apart from the weights, so a resume is exact.
+
+In a process group (data-parallel training) every rank calls
+``save_checkpoint``: rank 0 writes and the others wait for it at a barrier;
+every rank then loads the same file.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from genpose2_tpu_torch.parallel.distributed import barrier, rank
 from genpose2_tpu_torch.training.agent import TrainState
 
 _TORCH_SUFFIXES = (".pth", ".pt", ".pth.tar", ".pt.tar")
@@ -42,10 +47,18 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, name: Optional[str] = None
                     agent=None) -> str:
     """Write ``<ckpt_dir>/<name or step_N>`` atomically (a temporary file, then
     a rename); ``agent``'s constants and backbone go with it. Returns the
-    path."""
+    path. In a process group rank 0 writes, and every rank returns once the
+    file is there."""
     ckpt_dir = os.path.abspath(ckpt_dir)
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, name or f"step_{int(state.step)}")
+    if rank() == 0:
+        _write(path, state, agent)
+    barrier()
+    return path
+
+
+def _write(path: str, state: TrainState, agent) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     names = list(state.params)
     opt = {"count": int(state.opt_state["count"])}
     for k, v in state.opt_state.items():
@@ -62,7 +75,6 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, name: Optional[str] = None
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)
-    return path
 
 
 def _read(path: str) -> dict:

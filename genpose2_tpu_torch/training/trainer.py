@@ -20,7 +20,14 @@ distillation every 50th, and one record an epoch. With
 ``cfg.train.distillation``, a score agent and a ``frozen_score`` pair, each
 step is ``train_step_distilled`` with that pair as the teacher.
 
-Multi-device training raises (ROADMAP.md queue 1, parallel and utilities).
+With ``mesh`` (``parallel/mesh.py:make_mesh``) the Trainer is one rank of a
+data-parallel run, as the JAX Trainer is under its mesh: ``init`` replicates
+rank 0's state (the train state, the model's fixed projections, the
+backbone, the frozen score agent), each rank's ``loader_fn`` gives its own
+rows of every global batch (``parallel/distributed.py:host_local_slice``, a
+sharded ``DataLoader``), each step runs under ``use_mesh`` (global BatchNorm
+statistics and draws, averaged gradients), and rank 0 alone writes the
+metrics log and the checkpoints while the others wait for it.
 """
 
 from __future__ import annotations
@@ -35,10 +42,12 @@ import torch
 from genpose2_tpu_torch.config import Config
 from genpose2_tpu_torch.data.loader import process_batch
 from genpose2_tpu_torch.eval.metrics import rot_error_deg
+from genpose2_tpu_torch.parallel.distributed import global_batch_from_host_local, rank
+from genpose2_tpu_torch.parallel.mesh import Mesh, replicate, use_mesh
 from genpose2_tpu_torch.so3.rotations import get_rot_matrix
 from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent, TrainState
-from genpose2_tpu_torch.training.checkpoint import (load_checkpoint, load_params_only,
-                                                    save_checkpoint)
+from genpose2_tpu_torch.training.checkpoint import (_backbone, load_checkpoint,
+                                                    load_params_only, save_checkpoint)
 from genpose2_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -100,22 +109,28 @@ class Trainer:
     agent learns, read through the state's EMA weights as the JAX trainer
     reads them. ``score_ckpt`` warm-starts an energy agent
     from a score checkpoint with zeroed heads; ``resume_from`` restores a
-    whole train state."""
+    whole train state (every rank loads the same file). ``mesh`` makes this
+    Trainer one rank of a data-parallel run, on the mesh's device whatever
+    ``device`` says."""
 
     def __init__(self, cfg: Config, agent_type: Optional[str] = None,
                  steps_per_epoch: int = 1000,
                  frozen_score: Optional[Tuple[PoseAgent, TrainState]] = None, device=None,
                  log_dir: Optional[str] = None, score_ckpt: Optional[str] = None,
-                 resume_from: Optional[str] = None):
+                 resume_from: Optional[str] = None, mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            device = mesh.device
         self.cfg = cfg
         self.agent_type = agent_type or cfg.train.agent_type
         self.steps_per_epoch = steps_per_epoch
         self.device = device
+        self.mesh = mesh
         self.frozen_score = frozen_score
         self.score_ckpt = score_ckpt
         self.resume_from = resume_from
         self.log_dir = log_dir or cfg.log_dir
-        self.logger = MetricsLogger(self.log_dir, self.agent_type)
+        # rank 0 alone writes the log
+        self.logger = MetricsLogger(self.log_dir, self.agent_type) if rank() == 0 else None
         self.is_scale = self.agent_type == "scale"
         self.distilled = (cfg.train.distillation and self.agent_type == "score"
                           and frozen_score is not None)
@@ -125,6 +140,7 @@ class Trainer:
             base_type = "energy" if self.agent_type.startswith("energy") else self.agent_type
             self.agent = PoseAgent(cfg, base_type, device, steps_per_epoch)
         self.state: Optional[TrainState] = None
+        self.last_metrics: dict = {}
 
     def init(self, sample_batch: Optional[dict] = None) -> TrainState:
         """The train state over the agent's current weights. The scale agent
@@ -144,7 +160,17 @@ class Trainer:
             zero_init_energy_heads(self.agent, self.state)
         if self.resume_from:
             load_checkpoint(self.resume_from, self.state, self.agent)
+        if self.mesh is not None:
+            parts = [self.state, self.agent.model, _backbone(self.agent)]
+            if self.frozen_score is not None:
+                agent, state = self.frozen_score
+                parts += [state, agent.model, _backbone(agent)]
+            replicate(parts, self.mesh)
         return self.state
+
+    def log(self, step: int, scalars: dict) -> None:
+        if self.logger is not None:
+            self.logger.log(step, scalars)
 
     def _processed(self, batch: dict, generator: Optional[torch.Generator]) -> dict:
         """A raw batch through process_batch (and the NOCS-style augmentation
@@ -185,23 +211,28 @@ class Trainer:
         t0 = time.time()
         last: dict = {}
         every = 50 if self.is_scale or self.distilled else 8
-        for i, batch in enumerate(batches):
-            batch = self._prepare(batch, generator)
-            if self.is_scale:
-                self.state, last = self.agent.train_step(self.state, batch)
-            elif self.distilled:
-                self.state, last = self.agent.train_step_distilled(self.state, self.frozen_score,
-                                                                   batch, generator)
-            else:
-                self.state, last = self.agent.train_step(self.state, batch, generator)
-            if i % every == 0:
-                self.logger.log(self.state.step, last)
-        self.logger.log(self.state.step, {**{f"epoch_{k}": v for k, v in last.items()},
-                                          "epoch": epoch, "epoch_time_s": time.time() - t0})
+        with use_mesh(self.mesh):
+            for i, batch in enumerate(batches):
+                batch = self._prepare(batch, generator)
+                if self.mesh is not None:
+                    batch = global_batch_from_host_local(batch, self.mesh)
+                if self.is_scale:
+                    self.state, last = self.agent.train_step(self.state, batch)
+                elif self.distilled:
+                    self.state, last = self.agent.train_step_distilled(
+                        self.state, self.frozen_score, batch, generator)
+                else:
+                    self.state, last = self.agent.train_step(self.state, batch, generator)
+                if i % every == 0:
+                    self.log(self.state.step, last)
+        self.log(self.state.step, {**{f"epoch_{k}": v for k, v in last.items()},
+                                   "epoch": epoch, "epoch_time_s": time.time() - t0})
+        self.last_metrics = last
         return last
 
     def save(self, name: Optional[str] = None) -> str:
-        """The train state (and the backbone) to ``<log_dir>/ckpt/<name>``."""
+        """The train state (and the backbone) to ``<log_dir>/ckpt/<name>``;
+        with a mesh, rank 0 writes and every rank calls it."""
         return save_checkpoint(os.path.join(self.log_dir, "ckpt"), self.state, name, self.agent)
 
     def fit(self, loader_fn: Callable[[int], Iterable[dict]], epochs: Optional[int] = None,
@@ -218,7 +249,7 @@ class Trainer:
             self.train_epoch(loader_fn(epoch), g, epoch)
             if epoch % self.cfg.train.eval_freq == 0 or epoch == epochs:
                 if eval_fn is not None:
-                    self.logger.log(self.state.step, eval_fn(self.state, epoch))
+                    self.log(self.state.step, eval_fn(self.state, epoch))
                 self.save(f"epoch_{epoch}")
         self.save("final")
         return self.state

@@ -259,10 +259,13 @@ def test_cli_chain_from_files(tiny_build_config, tmp_path, disk_data):
 
 
 def test_cli_refuses_what_is_not_ported(tiny_build_config, tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel"):
-        cli.main(["train", "--data_parallel", "2", *BASE_FLAGS])
-    with pytest.raises(NotImplementedError, match="parallel"):
-        cli.main(["eval", "--multihost", *BASE_FLAGS])
+    """What cannot run raises before any rank starts: a global batch that the
+    ranks do not divide, and --multihost beside --data_parallel (a rank a
+    process). Data-parallel training itself: tests/test_torch_port_parallel.py."""
+    with pytest.raises(ValueError, match="divisible"):
+        cli.main(["train", *BASE_FLAGS, "--data_parallel", "3"])
+    with pytest.raises(ValueError, match="one rank"):
+        cli.main(["train", *BASE_FLAGS, "--multihost", "--data_parallel", "2"])
 
 
 def test_python_m_cli_runs_on_the_cpu(tmp_path):

@@ -1091,3 +1091,48 @@ def test_segmsg_kernels_match_plain(card, train, monkeypatch):
         want = model(pts, train, torch.Generator(card).manual_seed(1), plain=True)
     assert got.shape == (8, 1024, 1) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_one_nccl_rank_steps_equal_the_mesh_less_steps(card, monkeypatch, tmp_path):
+    """A one-rank NCCL group (initialize_multihost's torchrun path) under a
+    Trainer with a mesh: two tiny_flagship_config score steps (dropout and
+    input jitter on), the collectives run and change no bit of the kernels'
+    mesh-less steps."""
+    from genpose2_tpu_torch.parallel.distributed import initialize_multihost, shutdown
+    from genpose2_tpu_torch.parallel.launch import free_port
+    from genpose2_tpu_torch.parallel.mesh import make_mesh
+    from genpose2_tpu_torch.training.trainer import Trainer
+
+    cfg = tiny_flagship_config()
+    g = torch.Generator().manual_seed(21)
+    batches = [{"pts": ((torch.rand(4, 128, 3, generator=g) - 0.5) * 0.3).to(card),
+                "zero_mean_gt_pose": (torch.randn(4, 9, generator=g) * 0.5).to(card),
+                "roi_rgb": torch.randn(4, 64, 64, 3, generator=g).to(card),
+                "roi_xs": torch.randint(0, 64, (4, 128), generator=g).to(card),
+                "roi_ys": torch.randint(0, 64, (4, 128), generator=g).to(card)}
+               for _ in range(2)]
+    torch.manual_seed(22)
+    ref = PoseAgent(cfg, "score", device=card)
+    state = ref.init_state()
+    gen = torch.Generator(card).manual_seed(23)
+    losses = [float(ref.train_step(state, b, gen)[1]["loss"]) for b in batches]
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                     RANK="0", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    assert initialize_multihost()
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = make_mesh()
+        torch.manual_seed(22)
+        tr = Trainer(cfg, "score", 1000, log_dir=str(tmp_path), mesh=mesh)
+        tr.init()
+        gen = torch.Generator(card).manual_seed(23)
+        got = [float(tr.train_epoch([b], gen)["loss"]) for b in batches]
+    finally:
+        shutdown()
+    assert got == losses
+    mine = [*tr.state.params.values(), *tr.state.buffers.values(), *tr.state.ema_params.values()]
+    theirs = [*state.params.values(), *state.buffers.values(), *state.ema_params.values()]
+    assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    assert mesh.stats["gradients"]["count"] == 2 and mesh.stats["batch_norm"]["count"] > 0
+    assert mesh.stats["batch_norm_backward"]["count"] == mesh.stats["batch_norm"]["count"]
