@@ -1,0 +1,8 @@
+"""The caching allocator's segment allocations (``cudaMalloc`` calls) inside
+the program's ``serve.request`` spans of the traced window, a request."""
+
+from bench_port.harness.program import per_unit
+
+
+def read(ctx):
+    return per_unit(ctx, "cuda_mallocs")

@@ -39,6 +39,7 @@ from genpose2_tpu_torch.device import resolve_device
 from genpose2_tpu_torch.eval.aggregate import aggregate_candidates, analytic_bbox_lengths
 from genpose2_tpu_torch.so3.rotations import matrix_to_rot6d_cols
 from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent
+from genpose2_tpu_torch.utils.profiling import span, to_host
 
 Weights = Union[None, bool, str, dict]
 DINO_PREFIX = "dino."
@@ -126,6 +127,7 @@ class GenPose2:
                                      frame["intrinsics"], self.cfg.data, mask_ids=mask_ids)
 
     @torch.no_grad()
+    @span("serve.request", unit=True)
     def serve_batch(self, raw: dict, prev_pose: Optional[torch.Tensor] = None,
                     tracking: bool = False, generator: Optional[torch.Generator] = None,
                     prior: Optional[torch.Tensor] = None,
@@ -140,7 +142,8 @@ class GenPose2:
         versions of every kernel."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
-        batch = process_batch(raw, self.cfg.model.pose_mode, self.device)
+        with span("collate"):
+            batch = process_batch(raw, self.cfg.model.pose_mode, self.device)
         if tracking and prev_pose is not None:
             if self.cfg.model.pose_mode != "rot_matrix":
                 raise ValueError("tracking warm-starts from prev_pose, the 9-D rot_matrix pose "
@@ -190,9 +193,9 @@ class GenPose2:
         out = self.serve_batch(raw, prev_pose, tracking, generator, prior, energy_t)
         R, t = out["aggregate"]["rotation"], out["aggregate"]["translation"]
         pose44 = np.tile(np.eye(4, dtype=np.float32), (R.shape[0], 1, 1))
-        pose44[:, :3, :3] = R.cpu().numpy()
-        pose44[:, :3, 3] = t.cpu().numpy()
+        pose44[:, :3, :3] = to_host(R).numpy()
+        pose44[:, :3, 3] = to_host(t).numpy()
         return {"pose": pose44,
-                "lengths": np.clip(out["lengths"].cpu().numpy(), 1e-3, None),
+                "lengths": np.clip(to_host(out["lengths"]).numpy(), 1e-3, None),
                 "mask_ids": raw["mask_ids"],
                 "prev_pose": torch.cat([matrix_to_rot6d_cols(R), t], dim=-1)}

@@ -25,6 +25,7 @@ import torch
 from genpose2_tpu_torch.diffusion.sde import SDE
 from genpose2_tpu_torch.ops.ode_rk4 import fused_rk4_integrate, pf_ode_rhs, rk4_fixed_grid
 from genpose2_tpu_torch.so3.rotations import normalize_rotation
+from genpose2_tpu_torch.utils.profiling import to_host
 
 # Dormand-Prince 5(4), as scipy.integrate.RK45
 _C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0)
@@ -100,7 +101,7 @@ def rk45_integrate(f: Callable, t0: float, t1: float, y0: torch.Tensor, rtol: fl
     for i in range(max_steps):
         if i % check_every == 0:
             reads += 1
-            if bool(done):
+            if bool(to_host(done)):
                 break
         h_try = torch.minimum(h_abs, torch.abs(t1 - t))  # no overshoot
         h = h_try * direction

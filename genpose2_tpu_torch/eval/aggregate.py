@@ -20,6 +20,7 @@ from genpose2_tpu_torch.so3.rotations import (
     quaternion_to_matrix,
 )
 from genpose2_tpu_torch.training.ranking import sort_poses_by_energy
+from genpose2_tpu_torch.utils.profiling import span
 
 
 def _dbscan_largest_cluster(row_dist: torch.Tensor, eps: float, min_samples: int):
@@ -47,6 +48,7 @@ def _dbscan_largest_cluster(row_dist: torch.Tensor, eps: float, min_samples: int
 
 
 @torch.no_grad()
+@span("aggregate")
 def aggregate_candidates(poses: torch.Tensor, energies: Optional[torch.Tensor] = None,
                          retain_ratio: float = 0.4, clustering: bool = True,
                          eps: float = 0.05, minpts_ratio: float = 0.1667,

@@ -25,6 +25,7 @@ import torch
 from genpose2_tpu_torch.config import Config
 from genpose2_tpu_torch.eval.aggregate import aggregate_candidates, analytic_bbox_lengths
 from genpose2_tpu_torch.eval.metrics import PoseMetrics, batch_criterion, compute_metrics
+from genpose2_tpu_torch.utils.profiling import span, to_host
 
 
 def _stage(path):
@@ -41,7 +42,7 @@ def _load_list(path):
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    return to_host(x).numpy()
 
 
 def _prior(priors, i):
@@ -214,6 +215,7 @@ class SingleFrameEvaluator:
         return self.criterion_and_metrics(batches, rots, transs, lengths)
 
     # ---------------------------------------------------------- streaming
+    @span("eval.batch", unit=True)
     def _run_one(self, batch: dict, generator=None, prior=None, plain: bool = False) -> dict:
         """Every stage for one batch; per-object results on the host. The
         backbone and the score encoder run once: the image features ride the
@@ -226,9 +228,10 @@ class SingleFrameEvaluator:
         agg = self._aggregate(poses, self._energy(batch, poses, plain=plain))
         R, t = agg["rotation"], agg["translation"]
         lengths = self._lengths(batch, R, t, pts_feat=feats[0])
-        iou, deg, sht = batch_criterion(R, t, lengths, batch["gt_rotation"],
-                                        batch["gt_translation"], batch["bbox_side_len"],
-                                        batch["sym_info"])
+        with span("criterion"):
+            iou, deg, sht = batch_criterion(R, t, lengths, batch["gt_rotation"],
+                                            batch["gt_translation"], batch["bbox_side_len"],
+                                            batch["sym_info"])
         out = {"rotation": R, "translation": t, "lengths": lengths, "iou": iou, "deg": deg,
                "sht": sht, "class_label": torch.as_tensor(batch["class_label"])}
         return {k: _host(v) for k, v in out.items()}

@@ -10,9 +10,13 @@ edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing here runs at import: the CPU tests import every module of the port
 on a machine without ``nvcc``.
 
-``launch_counts`` is the port's one piece of global state: each op wrapper
-adds one to its kernel's entry where it launches the kernel, and nowhere
-else, so a run can show that the main path went through the kernels.
+``launch_counts`` is one of the port's counters (``utils/profiling.py`` holds
+the others, and ``profiling.reset_counters()`` resets them all): each op
+wrapper adds one to its kernel's entry where it launches the kernel, and
+nowhere else, so a run can show that the main path went through the kernels.
+``library`` adds the seconds it spends building or loading a library to
+``profiling``'s ``kernel_load_s``, and each ``nvcc`` run to its
+``kernel_builds``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+
+from genpose2_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
@@ -111,11 +117,15 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = build([name])[name]["path"]
-            lib = ctypes.CDLL(path)
-            lib.gp2_strerror.argtypes = [ctypes.c_int]
-            lib.gp2_strerror.restype = ctypes.c_char_p
-            _libs[name] = lib
+            with profiling.span("setup.kernel_library"):
+                t0 = time.perf_counter()
+                report = build([name])[name]
+                lib = ctypes.CDLL(report["path"])
+                lib.gp2_strerror.argtypes = [ctypes.c_int]
+                lib.gp2_strerror.restype = ctypes.c_char_p
+                _libs[name] = lib
+                profiling.note_kernel_load(name, time.perf_counter() - t0,
+                                           built=report["seconds"] > 0)
         return lib
 
 

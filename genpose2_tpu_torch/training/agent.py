@@ -54,6 +54,7 @@ from genpose2_tpu_torch.parallel.mesh import active_mesh, batch_rand
 from genpose2_tpu_torch.training.ema import ema_init, ema_update
 from genpose2_tpu_torch.training.optim import ClippedOptimizer, global_norm, make_lr_schedule
 from genpose2_tpu_torch.training.ranking import ranking_loss, sort_results
+from genpose2_tpu_torch.utils.profiling import span
 
 # the diffusion time range of the ranking energies and of detection-mode
 # energies (genpose2_tpu/training/agent.py:485, 683)
@@ -322,9 +323,11 @@ class PoseAgent(_Trainable):
         key = "dino_global" if self.cfg.model.dino == "global" else "dino_layers"
         if self.provider is None or key in batch or "roi_rgb" not in batch:
             return batch
-        if key == "dino_global":
-            return dict(batch, dino_global=self.provider.global_feature(batch["roi_rgb"], plain))
-        return dict(batch, dino_layers=self.provider.patch_features(batch["roi_rgb"], plain))
+        with span("backbone"):
+            if key == "dino_global":
+                return dict(batch,
+                            dino_global=self.provider.global_feature(batch["roi_rgb"], plain))
+            return dict(batch, dino_layers=self.provider.patch_features(batch["roi_rgb"], plain))
 
     @torch.no_grad()
     def extract_features(self, batch: dict, plain: bool = False,
@@ -337,9 +340,10 @@ class PoseAgent(_Trainable):
         dino_dim + global_embedding_dim); otherwise rgb_feat is None.
         ``plain`` runs the plain versions of the kernels; ``state`` and
         ``use_ema`` pick the weights (see ``weights``)."""
-        batch = self.with_image_features(batch, plain)
-        with self.weights(state, use_ema):
-            return self._features(batch, plain=plain), self._global_rgb(batch)
+        with span(f"{self.agent_type}.encode"):
+            batch = self.with_image_features(batch, plain)
+            with self.weights(state, use_ema):
+                return self._features(batch, plain=plain), self._global_rgb(batch)
 
     def _pose_net(self, state: Optional[TrainState], use_ema: bool):
         """The pose net, or with a state whose EMA weights are asked for a
@@ -400,6 +404,7 @@ class PoseAgent(_Trainable):
         return score
 
     @torch.no_grad()
+    @span("score.sample")
     def sample_candidates(self, batch: dict, repeat_num: int = 50, T0: float = 1.0,
                           init_x: Optional[torch.Tensor] = None, method: str = "rk45",
                           num_steps: int = 500, features=None,
@@ -474,6 +479,7 @@ class PoseAgent(_Trainable):
             return poses.reshape(B, K, D)
 
     @torch.no_grad()
+    @span("energy.rank")
     def get_energy(self, batch: dict, poses: torch.Tensor, fixed_t: Optional[float] = 1e-5,
                    features=None, generator: Optional[torch.Generator] = None,
                    t: Optional[torch.Tensor] = None, plain: bool = False,
@@ -595,6 +601,7 @@ class ScaleAgent(_Trainable):
         return loss, dict(zip(state.params, grads))
 
     @torch.no_grad()
+    @span("scale.predict")
     def predict(self, pts_feat: torch.Tensor, axes: torch.Tensor,
                 state: Optional[TrainState] = None, use_ema: bool = True) -> torch.Tensor:
         """pts_feat (B, F), axes (B, 3, 3) -> box side lengths (B, 3). With a
