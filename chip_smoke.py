@@ -184,6 +184,9 @@ B, N, K, STEPS, T0, S = 64, 1024, 50, 50, 0.55, 256
 # a tracking call's RK4: 12 objects x K candidates, 100 steps from T0 0.15
 # (api.py: GenPose2's tracking settings)
 TRACK_R, TRACK_STEPS, TRACK_T0 = 12 * K, 100, 0.15
+# a batch of 128 objects x K candidates, 100 steps from T0: the RK4 shape of
+# bench_port's cells (64-row blocks, one round on the H100)
+CELL_R, CELL_STEPS = 128 * K, 100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # Dense peaks of one H100 SXM. float32 products: 3xTF32 on the tensor cores
 # (a third of TF32's 495 TFLOP/s) keeps float32 accuracy and beats the FMA
@@ -1019,6 +1022,7 @@ def main():
 
     long_in = {}  # the kernels phase's inputs past the old size caps, timed again
     rk4_modes_in = {}  # (D, dtype) -> RK4 inputs at the pose modes' widths, timed again
+    rk4_cells_in = {}  # dtype -> RK4 inputs at CELL_R rows, timed again
 
     @phase("kernels")
     def kernels():
@@ -1093,12 +1097,28 @@ def main():
             err_t = max_err(xkt, xpt)
             close_t = bool(torch.allclose(xkt, xpt, atol=tol[0], rtol=tol[1]))
             ok = ok and close_t and bool(torch.isfinite(xkt).all())
+            # and at CELL_R rows (the request's objects twice; draws of a
+            # generator of their own), to the same bounds, and its time
+            cgen = torch.Generator().manual_seed(SEED + 9)
+            wc = fast_score_weights(s.model.pose_score_net,
+                                    feat.repeat_interleave(K, 0).repeat(CELL_R // (B * K), 1))
+            x0c = s.sde.prior_sample((CELL_R, 9), T=T0, generator=cgen).to(dev)
+            xkc = fused_rk4_integrate(x0c, wc, s.sde, T0, CELL_STEPS, dtype)
+            xpc = fused_rk4_plain(x0c, wc, s.sde, T0, CELL_STEPS, dtype)
+            err_c = max_err(xkc, xpc)
+            close_c = bool(torch.allclose(xkc, xpc, atol=tol[0], rtol=tol[1]))
+            ok = ok and close_c and bool(torch.isfinite(xkc).all())
+            ms_c = cuda_ms(lambda: fused_rk4_integrate(x0c, wc, s.sde, T0, CELL_STEPS, dtype), 3)
+            rk4_cells_in[dtype] = (x0c, wc, s.sde)
             name = "fused_rk4" if dtype == "float32" else "fused_rk4.bf16"
-            results[name] = {"max_abs_err": max(err, err_t),
+            results[name] = {"max_abs_err": max(err, err_t, err_c),
                              "tolerance": f"atol={tol[0]:.3g}, rtol={tol[1]}",
                              "args": (x0, w, s.sde)}
             line["rk4"][dtype] = {"max_abs_err": err, "within": close,
-                                  "tracking": {"max_abs_err": err_t, "within": close_t}}
+                                  "tracking": {"max_abs_err": err_t, "within": close_t},
+                                  "cells": {"rows": CELL_R, "steps": CELL_STEPS,
+                                            "max_abs_err": err_c, "within": close_c,
+                                            "ms": ms_c}}
         # RK4 at the pose modes' widths: the quaternion modes' R_and_T net
         # (two 256-wide heads, D = 7) and euler_xyz's RT net (one 512-wide
         # head, D = 6), H1 = 512, at the request's and a tracking call's
@@ -3464,11 +3484,19 @@ def main():
                 ms_m, pms_m, cost_m, ms_mt, b_mt = rk4_times(x0m, wm, sdem, dtype)
                 widths[f"D{D}"] = {"ms": ms_m, "plain_ms": pms_m, "bound_ms": bound_ms(*cost_m)[0],
                                    "tracking_ms": ms_mt, "tracking_bound_ms": b_mt}
+            # the cells' shape: CELL_R rows, CELL_STEPS steps
+            x0c, wc, sdec = rk4_cells_in[dtype]
+            ms_c = cuda_ms(lambda: fused_rk4_integrate(x0c, wc, sdec, T0, CELL_STEPS, dtype), 3)
+            b_c, _ = bound_ms(*rk4_cost(wc, CELL_R, 9, CELL_STEPS, dtype))
             per_stage[name] = {"kernel_ms": ms, "tracking_ms": ms_t, "tracking_bound_ms": b_t,
+                               "cells_ms": ms_c, "cells_bound_ms": b_c,
                                "pose_mode_widths": widths}
             entry(name, csrc + "ode_rk4.cu", "genpose2_tpu/ops/ode_rk4.py:233", ms, pms, *cost,
                   tracking={"R": TRACK_R, "steps": TRACK_STEPS, "T0": TRACK_T0, "ms": ms_t,
-                            "bound_ms": b_t}, pose_mode_widths=widths)
+                            "bound_ms": b_t},
+                  cells={"R": CELL_R, "steps": CELL_STEPS, "T0": T0, "ms": ms_c,
+                         "bound_ms": b_c},
+                  pose_mode_widths=widths)
 
         # rel-PE: the four stage launches of one encoder forward, at a
         # request's batch B and a frame call's N_OBJ. Bias per (query, key)

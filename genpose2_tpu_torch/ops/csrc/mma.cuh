@@ -450,37 +450,6 @@ __device__ __forceinline__ void tile_mma(float (&acc)[WarpTile<MT>::kM][4][4], c
   }
 }
 
-// acc (one m16 x n8 tile) += A rows m0.., depth k0..k0+15 (bf16) or k0..k0+7
-// (float32) x the tile's rows kr.. and columns n0..n0+7.
-__device__ __forceinline__ void mma_one(float (&acc)[4], const __nv_bfloat16* A, int lda,
-                                        int m0, int k0, const __nv_bfloat16* Wt, int ldw,
-                                        int kr, int n0) {
-  const int lane = threadIdx.x & 31;
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-  uint32_t a[4], b[4];
-  ldmatrix_x4(a, A + (m0 + lrow) * lda + k0 + lcol);
-  // x4 for uniform addressing; matrices 2 and 3 repeat 0 and 1
-  ldmatrix_x4_trans(b, Wt + (kr + lrow) * ldw + n0);
-  mma_bf16(acc, a, b[0], b[1]);
-}
-__device__ __forceinline__ void mma_one(float (&acc)[4], const float* A, int lda, int m0,
-                                        int k0, const float* Wt, int ldw, int kr, int n0) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const float* p = A + (m0 + g) * lda + k0 + t;
-  uint32_t ah[4], al[4], bh[2], bl[2];
-  split_tf32(p[0], ah[0], al[0]);
-  split_tf32(p[8 * lda], ah[1], al[1]);
-  split_tf32(p[4], ah[2], al[2]);
-  split_tf32(p[8 * lda + 4], ah[3], al[3]);
-  const float* q = Wt + (kr + t) * ldw + n0 + g;
-  split_tf32(q[0], bh[0], bl[0]);
-  split_tf32(q[4 * ldw], bh[1], bl[1]);
-  mma_tf32(acc, al, bh[0], bh[1]);
-  mma_tf32(acc, ah, bl[0], bl[1]);
-  mma_tf32(acc, ah, bh[0], bh[1]);
-}
-
 template <int M>
 __device__ __forceinline__ void zero(float (&acc)[M][4][4]) {
 #pragma unroll

@@ -20,7 +20,6 @@ constexpr int kPlanWarps = 16;         // warps of a block
 constexpr int kChunkCols = 256;        // output columns of one product pass
 constexpr int kRingBytes = 33792;      // one ring buffer: 64 x 264 bf16, 32 x 264 float32
 constexpr int kSmemLimit = 232448;     // dynamic shared memory of one block (227 KB)
-constexpr int kScratchFloats = 2048;   // RK4: the split-depth sums of the last product
 constexpr int kSaCentroids = 16;       // SA: centroids of one block (8 or 4 where 16 do not fit)
 constexpr int kSaMaxScales = 4;
 constexpr int kSaMaxLayers = 4;
@@ -51,68 +50,79 @@ GP2_HD int ring_need(int K, int N, int esize, int cap_bytes = kRingBytes) {
   return imin(cap_bytes / esize, round_up(K, 16) * tile_ld(chunk_cols(N, 0)));
 }
 
-// Blocks in rounds of num_sms, times rows: the rows one SM works through.
-inline long long rows_per_sm(int R, int rows, int num_sms) {
-  const long long blocks = (R + rows - 1) / rows;
-  return (blocks + num_sms - 1) / num_sms * rows;
-}
-
 // ------------------------------------------------------------------ RK4
 
+constexpr int kRk4MaxRows = 64;    // rows of the widest block
+constexpr int kRk4MaxBufs = 4;     // ring slots
+constexpr int kRk4MaxChunks = 8;   // 256-column chunks of the heads' first layer (H1 <= 2,048)
+constexpr int kRk4Consumers = 8;   // consumer warps of a block, 32 columns of a chunk each
+
 struct Rk4Plan {
-  int rows;        // rows of one block (16 or 32)
-  int nbuf;        // ring buffers (2 or 3)
-  int ring_elems;  // elements of one ring buffer
+  int rows;        // rows of one block: 16, 32, 48 or 64
+  int rounds;      // rounds of blocks on the card (one block an SM)
+  int nbuf;        // ring slots (2-4)
+  int ring_elems;  // elements of one slot
   int dpad;        // state stride: D rounded up to 4
   int ldp, ldq;    // activation strides (elements) of buffers P and Q
-  int w2_rows;     // rows of W2 held in shared memory for the whole call
-                   // (H1 rounded up to 16), or 0: W2 streams with the rest
   int smem_bytes;
-  // byte offsets: f32 X, XT, KS[4] (rows x dpad each), scratch; P, Q, the
-  // resident W2 (w2_rows x tile_ld(D)), ring
-  int off_state, off_scratch, off_p, off_q, off_w2, off_ring;
+  // byte offsets: f32 X, XT, KS[4] (rows x dpad each); P; Q, which also
+  // holds the last product's partial sums (kRk4Consumers x rows x 16 f32);
+  // the ring; its full and empty mbarriers (nbuf each, 8 bytes)
+  int off_state, off_p, off_q, off_ring, off_bar;
 };
 
-// 0 and *p filled, or -1 when no plan fits (D above 16, or too wide).
-inline int rk4_plan(int R, int D, int P1, int P2, int H1, int bf16, int num_sms, Rk4Plan* p) {
-  if (R < 1 || D < 1 || D > 16 || P1 < 1 || P2 < 1 || H1 < 1 || num_sms < 1) return -1;
+// The layout of `rows`-row blocks with a ring of nbuf slots of kRingBytes /
+// slot_div bytes: 0 and *p filled where it fits, else -1.
+inline int rk4_layout(int R, int D, int P1, int P2, int bf16, int num_sms, int rows,
+                      int slot_div, int nbuf, Rk4Plan* p) {
   const int es = bf16 ? 2 : 4;
-  int best = -1;
-  long long best_load = 0;
-  for (int rows = 32; rows >= 16; rows -= 16) {
-    // the first that fits of: full-size ring tiles before half-size; W2
-    // resident (its rows are D wide: a tile of the stream is mostly padding,
-    // and bf16 rows of odd D copy element by element); a ring 3 deep before 2
-    for (int opt = 0; opt < 8; ++opt) {
-      const int cap = kRingBytes >> (opt / 4), resident = opt / 2 % 2 == 0, nbuf = 3 - opt % 2;
-      Rk4Plan q;
-      q.rows = rows;
-      q.nbuf = nbuf;
-      q.ring_elems = imax(imax(ring_need(D, P1, es, cap), ring_need(P1, P2, es, cap)),
-                          ring_need(P2, H1, es, cap));
-      if (!resident) q.ring_elems = imax(q.ring_elems, ring_need(H1, D, es, cap));
-      q.dpad = round_up(D, 4);
-      q.ldp = imax(act_ld(D, es), act_ld(P2, es));
-      q.ldq = imax(act_ld(P1, es), act_ld(H1, es));
-      q.w2_rows = resident ? round_up(H1, 16) : 0;
-      q.off_state = 0;
-      q.off_scratch = 4 * 6 * rows * q.dpad;
-      q.off_p = q.off_scratch + 4 * kScratchFloats;
-      q.off_q = q.off_p + es * rows * q.ldp;
-      q.off_w2 = q.off_q + es * rows * q.ldq;
-      q.off_ring = q.off_w2 + es * q.w2_rows * tile_ld(D);
-      q.smem_bytes = q.off_ring + es * nbuf * q.ring_elems;
-      if (q.smem_bytes > kSmemLimit) continue;
-      const long long load = rows_per_sm(R, rows, num_sms);
-      if (best < 0 || load < best_load) {  // ties keep the larger tile
-        *p = q;
-        best = rows;
-        best_load = load;
-      }
-      break;
-    }
-  }
-  return best < 0 ? -1 : 0;
+  Rk4Plan q;
+  q.rows = rows;
+  q.nbuf = nbuf;
+  q.ring_elems = kRingBytes / slot_div / es;
+  // a slot holds a chunk's rows of W2 (at most 16 columns) and 16 rows of a
+  // 256-column tile
+  if (rows % 16 || rows < 16 || rows > kRk4MaxRows || nbuf < 2 || nbuf > kRk4MaxBufs ||
+      q.ring_elems < kChunkCols * 16 || q.ring_elems / tile_ld(kChunkCols) < 16)
+    return -1;
+  const long long blocks = (R + rows - 1LL) / rows;
+  q.rounds = static_cast<int>((blocks + num_sms - 1) / num_sms);
+  q.dpad = round_up(D, 4);
+  q.ldp = imax(act_ld(D, es), act_ld(P2, es));
+  q.ldq = act_ld(P1, es);
+  q.off_state = 0;
+  q.off_p = 4 * 6 * rows * q.dpad;
+  q.off_q = q.off_p + es * rows * q.ldp;
+  const int q_bytes = imax(es * rows * q.ldq, 4 * kRk4Consumers * rows * 16);
+  q.off_ring = round_up(q.off_q + q_bytes, 128);  // the TMA's boxes land 128-byte aligned
+  q.off_bar = q.off_ring + es * nbuf * q.ring_elems;
+  q.smem_bytes = q.off_bar + 2 * 8 * nbuf;
+  if (q.smem_bytes > kSmemLimit) return -1;
+  *p = q;
+  return 0;
+}
+
+// 0 and *p filled, or -1 when no plan fits (D above 16, P1, P2 or H1 not a
+// multiple of kChunkCols, more than kRk4MaxChunks chunks of H1, or too
+// wide). The row tile: the smallest
+// multiple of 16 that puts every block on the card in one round (rows /
+// num_sms rounded up), at most 64; above 64 x num_sms rows, 64-row blocks in
+// several rounds. 6,400 rows make 100 blocks of 64, 3,200 rows 100 of 32, a
+// tracking call's 600 rows 38 of 16. The ring: the first that fits of four
+// slots of kRingBytes, three, two, then four, three or two of half that
+// (64 float32 rows: two full slots, 4% faster than four half ones on the
+// H100, PERF.md section 6).
+inline int rk4_plan(int R, int D, int P1, int P2, int H1, int bf16, int num_sms, Rk4Plan* p) {
+  if (R < 1 || D < 1 || D > 16 || P1 < 1 || P2 < 1 || H1 < 1 || num_sms < 1 ||
+      P1 % kChunkCols || P2 % kChunkCols || H1 % kChunkCols || n_chunks(H1) > kRk4MaxChunks)
+    return -1;
+  const long long per_sm = (R + num_sms - 1LL) / num_sms;
+  const int want = per_sm >= kRk4MaxRows ? kRk4MaxRows : round_up(static_cast<int>(per_sm), 16);
+  const int opts[6][2] = {{1, 4}, {1, 3}, {1, 2}, {2, 4}, {2, 3}, {2, 2}};  // slot_div, nbuf
+  for (int rows = want; rows >= 16; rows -= 16)
+    for (int o = 0; o < 6; ++o)
+      if (rk4_layout(R, D, P1, P2, bf16, num_sms, rows, opts[o][0], opts[o][1], p) == 0) return 0;
+  return -1;
 }
 
 // ------------------------------------------------------------------- SA

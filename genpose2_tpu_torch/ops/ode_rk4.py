@@ -119,22 +119,36 @@ def fused_rk4_plain(x0: torch.Tensor, weights: dict, sde, T0: float, num_steps: 
                           num_steps)
 
 
-def _rk4_cuda(x0, weights, sde, T0, num_steps, compute_dtype):
+def _weight(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A weight matrix in the compute dtype, contiguous and 16-byte aligned
+    (the TMA copies it from there): a view off 16 bytes is copied."""
+    t = t.to(dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def rk4_operands(x0, weights, sde, T0, num_steps, compute_dtype):
+    """gp2_rk4's operands, checked: its twelve tensors (x0, the output,
+    static, the t rows, the step scalars, w0, b0, w1, b1, Wpose, W2, b2) and
+    its seven ints (R, D, P1, P2, H1, steps, bf16)."""
     dev = x0.device
     R, D = x0.shape
     dt = compute_dtype_of(compute_dtype)
     static = weights["static"].float().contiguous()
     H1 = static.shape[1]
-    w0 = weights["pose_mlp"]["Dense_0"]["kernel"].to(dt).contiguous()
-    w1 = weights["pose_mlp"]["Dense_1"]["kernel"].to(dt).contiguous()
+    w0 = _weight(weights["pose_mlp"]["Dense_0"]["kernel"], dt)
+    w1 = _weight(weights["pose_mlp"]["Dense_1"]["kernel"], dt)
     P1, P2 = w0.shape[1], w1.shape[1]
     b0 = weights["pose_mlp"]["Dense_0"]["bias"].float().contiguous()
     b1 = weights["pose_mlp"]["Dense_1"]["bias"].float().contiguous()
-    wp = weights["W1_pose"].to(dt).contiguous()
-    w2 = weights["W2bd"].to(dt).contiguous()
+    wp = _weight(weights["W1_pose"], dt)
+    w2 = _weight(weights["W2bd"], dt)
     b2 = weights["b2cat"].float().contiguous()
     if D > 16:
         raise ValueError(f"pose dim {D}: the kernel's last product holds at most 16 columns")
+    if P1 % 256 or P2 % 256 or H1 % 256:
+        raise ValueError(f"widths {P1}, {P2}, {H1}: the kernel takes multiples of 256 columns")
+    if H1 > 2048:
+        raise ValueError(f"heads' width {H1}: the kernel walks at most 8 chunks of 256 columns")
     trows, scal = _time_tables(weights, sde, T0, float(sde.eps), num_steps)
     for t, name, dtype, shape in (
         (x0, "x0", torch.float32, (R, D)), (static, "static", torch.float32, (R, H1)),
@@ -146,17 +160,25 @@ def _rk4_cuda(x0, weights, sde, T0, num_steps, compute_dtype):
     ):
         _cuda.require(t, name, dtype, shape, dev)
     out = torch.empty((R, D), dtype=torch.float32, device=dev)
+    tensors = (x0, out, static, trows, scal, w0, b0, w1, b1, wp, w2, b2)
+    return tensors, (R, D, P1, P2, H1, num_steps, int(dt == torch.bfloat16))
+
+
+def _rk4_cuda(x0, weights, sde, T0, num_steps, compute_dtype):
+    tensors, ints = rk4_operands(x0, weights, sde, T0, num_steps, compute_dtype)
     lib = _cuda.library("ode_rk4")
-    lib.gp2_rk4.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.gp2_rk4.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.gp2_rk4.restype = ctypes.c_int
-    code = lib.gp2_rk4(x0.data_ptr(), out.data_ptr(), static.data_ptr(), trows.data_ptr(),
-                       scal.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-                       b1.data_ptr(), wp.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                       R, D, P1, P2, H1, num_steps, int(dt == torch.bfloat16),
-                       _cuda.stream_ptr(x0))
+    rounds = ctypes.c_int(0)
+    code = lib.gp2_rk4(*(t.data_ptr() for t in tensors), *ints, _cuda.stream_ptr(x0),
+                       ctypes.byref(rounds))
     _cuda.check(lib, code, "fused_rk4_integrate")
     _cuda.launch_counts["fused_rk4"] += 1
-    return out
+    # the launch's rounds of blocks on the card, from its plan (one where
+    # every block of 64 rows or fewer fits on an SM at once)
+    _cuda.launch_counts["fused_rk4_rounds"] += rounds.value
+    return tensors[1]
 
 
 def fused_rk4_integrate(x0: torch.Tensor, weights: dict, sde, T0: float, num_steps: int,

@@ -13,6 +13,7 @@ to the tolerance stated at each assert.
 import copy
 import dataclasses
 import math
+import re
 
 import numpy as np
 import pytest
@@ -368,6 +369,10 @@ def test_rk4_kernel_matches_plain(card, mode):
     (37, 50, 0.55),     # a partial last tile
     (600, 100, 0.15),   # a tracking call: 12 objects x 50 candidates
     (3200, 50, 0.55),   # a request: 64 objects x 50 candidates
+    (6400, 100, 0.55),  # the benchmark's cells: 128 objects x 50, 100 blocks of 64
+    (6400, 500, 0.55),
+    (4300, 20, 0.55),   # blocks of 48 rows
+    (8449, 10, 0.55),   # one row past 64 x 132: 64-row blocks in two rounds
 ])
 def test_rk4_kernel_flagship_widths(card, dtype, mode, R, steps, T0):
     """The score net at its real widths (pose MLP 256/256, three 256-wide
@@ -386,6 +391,66 @@ def test_rk4_kernel_flagship_widths(card, dtype, mode, R, steps, T0):
         want = fused_rk4_plain(x0, w, sde, T0, steps, dtype)
     # chip_smoke.py's bounds: f32 the JAX package's for the fused kernel
     # against the scan; bf16 looser (t rows kept f32 where the scan rounds)
+    atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rk4_kernel_one_launch_one_round(card, dtype):
+    """At the benchmark's 6,400 rows one integration is one launch of
+    rk4_kernel (what the rk4_roofline metrics read), in one round of blocks
+    on the card (launch_counts' fused_rk4_rounds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sde = init_sde("ve")
+    net = _randomize(PoseScoreNet(sde.marginal_std, 9, "Rx_Ry_and_T", 128), 17).to(card)
+    g = torch.Generator().manual_seed(18)
+    feat = torch.randn(6400, 128, generator=g).to(card)
+    x0 = (torch.randn(6400, 9, generator=g) * 0.55).to(card)
+    with torch.no_grad():
+        w = fast_score_weights(net, feat)
+        fused_rk4_integrate(x0, w, sde, 0.55, 5, dtype)  # built and loaded
+        torch.cuda.synchronize()
+        before = _cuda.launch_counts["fused_rk4_rounds"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fused_rk4_integrate(x0, w, sde, 0.55, 5, dtype)
+            torch.cuda.synchronize()
+    assert _cuda.launch_counts["fused_rk4_rounds"] == before + 1
+    rx = re.compile(r"\brk4_kernel\b")
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and rx.search(ev.key))
+    assert launches == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rk4_kernel_unaligned_weights(card, dtype):
+    """Weight matrices whose base is not 16-byte aligned (views one element
+    into a buffer) cannot be copied by the TMA: the wrapper copies them to
+    aligned storage, to the bounds of test_rk4_kernel_flagship_widths."""
+    sde = init_sde("vp")
+    net = _randomize(PoseScoreNet(sde.marginal_std, 9, "Rx_Ry_and_T", 128), 19).to(card)
+    g = torch.Generator().manual_seed(20)
+    feat = torch.randn(3200, 128, generator=g).to(card)
+    x0 = (torch.randn(3200, 9, generator=g) * 0.55).to(card)
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+    def unaligned(w):
+        buf = torch.empty(w.numel() + 1, dtype=dt, device=card)
+        view = buf[1:].view(w.shape)
+        view.copy_(w)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    with torch.no_grad():
+        w = fast_score_weights(net, feat)
+        pm = w["pose_mlp"]
+        w = {**w, "W1_pose": unaligned(w["W1_pose"]), "W2bd": unaligned(w["W2bd"]),
+             "pose_mlp": {"Dense_0": {**pm["Dense_0"], "kernel": unaligned(pm["Dense_0"]["kernel"])},
+                          "Dense_1": {**pm["Dense_1"], "kernel": unaligned(pm["Dense_1"]["kernel"])}}}
+        got = fused_rk4_integrate(x0, w, sde, 0.55, 20, dtype)
+        want = fused_rk4_plain(x0, w, sde, 0.55, 20, dtype)
     atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
@@ -1034,6 +1099,7 @@ def test_tiny_evaluator_streaming_on_card_kernels_match_plain(card, tmp_path):
 @pytest.mark.parametrize("R,steps,T0", [
     (600, 100, 0.15),   # a tracking call: 12 objects x 50 candidates
     (3200, 50, 0.55),   # a request: 64 objects x 50 candidates
+    (6400, 100, 0.55),  # 128 objects x 50: blocks of 64 rows
 ])
 def test_rk4_kernel_pose_mode_widths(card, dtype, D, head, R, steps, T0):
     """The quaternion modes' score net (R_and_T: two 256-wide heads, D = 7)

@@ -22,8 +22,8 @@ from genpose2_tpu_torch.ops.fps import MAX_REGISTER_POINTS
 CSRC = Path(__file__).resolve().parents[1] / "genpose2_tpu_torch" / "ops" / "csrc"
 SMEM_LIMIT = 232448  # 227 KB: the dynamic shared memory of one H100 block
 H100_SMS = 132
-RK4_FIELDS = ("rows", "nbuf", "ring_elems", "dpad", "ldp", "ldq", "w2_rows", "smem_bytes",
-              "off_state", "off_scratch", "off_p", "off_q", "off_w2", "off_ring")
+RK4_FIELDS = ("rows", "rounds", "nbuf", "ring_elems", "dpad", "ldp", "ldq", "smem_bytes",
+              "off_state", "off_p", "off_q", "off_ring", "off_bar")
 SA_FIELDS = ("rows", "centroids", "nbuf", "ring_elems", "lda", "ldb", "max_cout", "idx_stride", "smem_bytes",
              "off_acc", "off_xyz", "off_idx", "off_nrow", "off_rstart", "off_rowc", "off_rowp",
              "off_a", "off_b", "off_ring")
@@ -88,45 +88,78 @@ def _assert_layout(plan, sections):
     assert end == plan["smem_bytes"]
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("R,rows", [
-    (1, 16), (37, 16), (100, 16),  # the tests' shapes
-    (600, 16),                     # a tracking call: 12 objects x 50 candidates, 38 blocks
-    (3200, 32),                    # a request: 64 x 50, 100 blocks in one round
-    (6400, 32),                    # two rounds of 32-row blocks
-])
-def test_rk4_plan(plan_lib, bf16, R, rows):
-    p = rk4_plan(plan_lib, R, bf16)
-    assert p is not None and p["rows"] == rows
-    # bf16: W2 resident (768 rows of 24), a ring 3 deep; float32: W2
-    # resident and a ring 2 deep at 16 rows, W2 streamed with the rest at 32
-    assert p["w2_rows"] == (768 if bf16 or rows == 16 else 0)
-    assert p["nbuf"] == (3 if bf16 else 2)
+def _assert_rk4_layout(p, bf16):
+    """The RK4 plan's sections in order: the f32 state (x, the stage input,
+    four slopes), P, Q (also the last product's partial sums: 8 consumer
+    warps x rows x 16 f32), the ring, its 2 x nbuf mbarriers."""
     es = 2 if bf16 else 4
-    assert p["ring_elems"] * es == 33792
-    assert p["ldp"] == 256 + (8 if bf16 else 4) and p["ldq"] == 768 + (8 if bf16 else 4)
-    _assert_layout(p, [("off_state", 4 * 6 * rows * p["dpad"]), ("off_scratch", 4 * 2048),
-                       ("off_p", es * rows * p["ldp"]), ("off_q", es * rows * p["ldq"]),
-                       ("off_w2", es * p["w2_rows"] * 24),
-                       ("off_ring", es * p["nbuf"] * p["ring_elems"])])
+    rows = p["rows"]
+    q_bytes = max(es * rows * p["ldq"], 4 * 8 * rows * 16)
+    _assert_layout(p, [("off_state", 4 * 6 * rows * p["dpad"]), ("off_p", es * rows * p["ldp"]),
+                       ("off_q", q_bytes), ("off_ring", es * p["nbuf"] * p["ring_elems"]),
+                       ("off_bar", 16 * p["nbuf"])])
+    # the TMA's boxes land 128-byte aligned
+    assert p["off_ring"] % 128 == 0 and p["ring_elems"] * es % 128 == 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("R,rows,rounds", [
+    (1, 16, 1), (37, 16, 1), (100, 16, 1),  # the tests' shapes
+    (600, 16, 1),                     # a tracking call: 12 objects x 50 candidates, 38 blocks
+    (3200, 32, 1),                    # a request: 64 x 50, 100 blocks of 32
+    (6400, 64, 1),                    # the benchmark's batch of 128 x 50: 100 blocks of 64
+    (4300, 48, 1),                    # 33 rows an SM: 90 blocks of 48
+    (64 * 132, 64, 1),                # the most one round holds
+    (64 * 132 + 1, 64, 2),            # past it, 64-row blocks in rounds
+    (20000, 64, 3),
+])
+def test_rk4_plan(plan_lib, bf16, R, rows, rounds):
+    """The smallest row tile (a multiple of 16, at most 64) that puts every
+    block on the card in one round; the ring four full-size slots deep,
+    three at 48 float32 rows, two at 64."""
+    p = rk4_plan(plan_lib, R, bf16)
+    assert p is not None and (p["rows"], p["rounds"]) == (rows, rounds)
+    es = 2 if bf16 else 4
+    ring = {48: (3, 33792), 64: (2, 33792)}.get(rows, (4, 33792)) if not bf16 else (4, 33792)
+    assert (p["nbuf"], p["ring_elems"] * es) == ring
+    # the activations are at most 256 wide: product 3's output stays in registers
+    assert p["ldp"] == 256 + (8 if bf16 else 4) and p["ldq"] == 256 + (8 if bf16 else 4)
+    _assert_rk4_layout(p, bf16)
+
 
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("D", [7, 6])  # the quaternion modes (R_and_T), euler_xyz (RT)
-@pytest.mark.parametrize("R,rows", [(600, 16), (3200, 32)])
+@pytest.mark.parametrize("R,rows", [(600, 16), (3200, 32), (6400, 64)])
 def test_rk4_plan_pose_mode_widths(plan_lib, bf16, D, R, rows):
     """H1 = 512 (two 256-wide heads, or RT's one 512-wide head): the tiles
-    of the 768-wide plan, W2 resident, the layout inside 227 KB."""
+    of the 768-wide plan, the layout inside 227 KB."""
     p = rk4_plan(plan_lib, R, bf16, D=D, H1=512)
-    assert p is not None and p["rows"] == rows
-    assert p["dpad"] == 8 and p["w2_rows"] in (0, 512)
-    assert p["ldq"] == 512 + (8 if bf16 else 4)
-    assert p["smem_bytes"] <= 227 * 1024
+    assert p is not None and (p["rows"], p["rounds"]) == (rows, 1)
+    assert p["dpad"] == 8
+    assert p["ldq"] == 256 + (8 if bf16 else 4)
+    _assert_rk4_layout(p, bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("R", [600, 3200, 6400])
+def test_rk4_plan_widest_state(plan_lib, bf16, R):
+    """D = 16, the widest the last product holds: the state's rows of 16
+    still leave the ring of D = 9."""
+    p = rk4_plan(plan_lib, R, bf16, D=16)
+    want = rk4_plan(plan_lib, R, bf16)
+    assert p is not None and p["dpad"] == 16
+    assert (p["nbuf"], p["ring_elems"]) == (want["nbuf"], want["ring_elems"])
+    _assert_rk4_layout(p, bf16)
 
 
 def test_rk4_plan_refuses(plan_lib):
     assert rk4_plan(plan_lib, 100, True, D=17) is None  # the last product holds 16 columns
     assert rk4_plan(plan_lib, 0, True) is None
-    assert rk4_plan(plan_lib, 100, False, H1=4096) is None  # no tile fits 227 KB
+    assert rk4_plan(plan_lib, 100, False, H1=4096) is None  # past 8 chunks of 256 columns
+    # widths the TMA's boxes do not tile: the score net's are multiples of 256
+    assert rk4_plan(plan_lib, 100, False, H1=700) is None
+    assert rk4_plan(plan_lib, 100, True, P1=128) is None
+    assert rk4_plan(plan_lib, 100, True, P2=320) is None
 
 
 CFG = PointNet2Config()
