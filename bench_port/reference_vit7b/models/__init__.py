@@ -1,0 +1,3 @@
+# Frozen copy of genpose2_tpu_torch/models/__init__.py as the change that adds the
+# DINOv3 ViT-7B/16 backbone leaves it (on 1aa1e826eb50c0ba74bfa36081a388a0f11ebab4), made by the rules of
+# bench_port/tools/freeze_reference.py: imports rewritten. Do not edit.

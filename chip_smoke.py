@@ -1186,6 +1186,27 @@ def main():
         ok = ok and within
         results["add_layernorm"] = {"max_abs_err": err, "tolerance": "rtol=atol=2e-2 (bf16 out)"}
         line["add_ln"] = {"max_abs_err": err, "within": within}
+        # the wide route past 1,024 (the DINOv3 ViT-7B's 4,096; 1,280; 1,030,
+        # no multiple of 4): the three entries, float32 2e-5, bf16 2e-2
+        wgen = torch.Generator().manual_seed(SEED + 4096)
+        line["ln_wide"] = {}
+        for D in (1280, 4096, 1030):
+            for dtype, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+                x, h = (torch.randn(1037, D, generator=wgen).to(dev, compute_dtype_of(dtype))
+                        for _ in range(2))
+                gm, sc, bi = (torch.randn(D, generator=wgen).to(dev) for _ in range(3))
+                pairs = [(fast_layernorm(x, sc, bi), fast_layernorm_plain(x, sc, bi)),
+                         (fast_residual_layernorm(x, h, sc, bi),
+                          fast_residual_layernorm_plain(x, h, sc, bi)),
+                         *zip(fast_add_layernorm(x, h, gm, sc, bi),
+                              fast_add_layernorm_plain(x, h, gm, sc, bi))]
+                err = max(max_err(a, b) for a, b in pairs)
+                within = all(bool(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol))
+                             for a, b in pairs)
+                ok = ok and within
+                line["ln_wide"][f"{dtype}_D{D}"] = {"max_abs_err": err, "within": within}
+                key = "add_layernorm" if dtype == "bfloat16" else "residual_layernorm"
+                results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
         # ViT attention, (64, 264, 384) float32 and (64, 272, 384) bf16, on the
         # n_valid real rows: the JAX bounds (tests/test_ops.py:546, 566)
         for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
@@ -1199,6 +1220,22 @@ def main():
             name = "vit_attention" if dtype == "float32" else "vit_attention.bf16"
             results[name] = {"max_abs_err": err, "tolerance": f"rtol=atol={tol}"}
             line["vit"][dtype] = {"max_abs_err": err, "within": within}
+        # ViT attention at the 7B's head dim: 32 heads of 128, 272 tokens (261
+        # real), bf16 at the cell's 128 crops, float32 at 8 (key windows)
+        line["vit_hd128"] = {}
+        for dtype, Bh, tol in (("bfloat16", 128, 2e-2), ("float32", 8, 1e-5)):
+            q, k, v = (torch.randn(Bh, 272, 4096, generator=wgen).to(dev, compute_dtype_of(dtype))
+                       for _ in range(3))
+            got, want = (f(q, k, v, 32, 261)[:, :261]
+                         for f in (vit_attention_tm, vit_attention_tm_plain))
+            err = max_err(got, want)
+            within = bool(torch.allclose(got, want, rtol=tol, atol=tol)
+                          and torch.isfinite(got).all())
+            ok = ok and within
+            line["vit_hd128"][dtype] = {"max_abs_err": err, "within": within}
+            name = "vit_attention" if dtype == "float32" else "vit_attention.bf16"
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            del q, k, v, got, want
         # the ViT's switch kernels at the flagship shapes, to the bounds above:
         # LayerNorm 1e-5 / 2e-2 (bf16 out), both attentions 1e-5 / 2e-2 on the
         # real rows

@@ -119,9 +119,11 @@ class ModelConfig:
     pts_encoder: str = "pointnet2"  # 'pointnet2' | 'pointnet' | 'pointnet_and_pointnet2'
     dino: str = "pointwise"  # 'none' | 'global' | 'pointwise'
     dino_dim: int = 384
-    # frozen image backbone: 'dinov3_vits16plus' (the fork's actual backbone,
-    # reference: networks/posenet.py:56-62) | 'dinov2_vits16' | 'none'
-    # ('none' = features are supplied precomputed in the batch)
+    # frozen image backbone, an entry of models/backbones.py:BACKBONES:
+    # 'dinov3_vits16plus' (the fork's actual backbone, reference:
+    # networks/posenet.py:56-62) | 'dinov3_vit7b16' (dino_dim 4096, depth 40)
+    # | 'dinov2_vits16' | 'none' ('none' = features are supplied precomputed
+    # in the batch); dino_dim and backbone_depth are checked against the entry
     backbone: str = "dinov3_vits16plus"
     backbone_depth: int = 12  # truncated in tests for speed
     backbone_dtype: str = "bfloat16"  # frozen-feature compute dtype

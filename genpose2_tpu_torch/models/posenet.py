@@ -41,6 +41,7 @@ from genpose2_tpu_torch.models.pointnet import PointNetFeat
 from genpose2_tpu_torch.models.pointnet2 import PointNet2ClsMSG, PointNet2ClsMSGFus
 from genpose2_tpu_torch.models.scorenet import PoseDecoderNet, PoseScoreNet
 from genpose2_tpu_torch.so3.rotations import encode_axes
+from genpose2_tpu_torch.utils.profiling import span
 
 
 class GFObjectPose(nn.Module):
@@ -89,7 +90,8 @@ class GFObjectPose(nn.Module):
 
     def fuse_dino_layers(self, dino_layers: Sequence[torch.Tensor]) -> torch.Tensor:
         """Tapped ViT layers -> fused patch features (B, P, D)."""
-        return self.img_encoder(dino_layers)
+        with span("img_encoder"):
+            return self.img_encoder(dino_layers)
 
     def pointwise_rgb_feat(self, fused_patches, roi_xs, roi_ys) -> torch.Tensor:
         """Each point's fused patch feature, from its pixel (xs, ys): patch

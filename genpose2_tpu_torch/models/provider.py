@@ -4,7 +4,8 @@ genpose2_tpu/models/provider.py:ImageFeatureProvider).
 The backbone belongs to the agent, not to GFObjectPose: the agent computes
 ``dino_layers`` (dino='pointwise') or ``dino_global`` (dino='global') from
 ``roi_rgb`` pixels once per batch, unless the batch already carries them.
-``cfg.backbone`` picks ``dinov3_vits16plus`` (``DinoV3ViT``) or
+``cfg.backbone`` names an entry of the registry (``models/backbones.py``):
+``dinov3_vits16plus`` or ``dinov3_vit7b16`` (``DinoV3ViT``), or
 ``dinov2_vits16`` (the DINOv2-style ``ViT``).
 """
 
@@ -13,24 +14,16 @@ from __future__ import annotations
 import torch
 
 from genpose2_tpu_torch.config import ModelConfig
-from genpose2_tpu_torch.models.vit import ViT, DinoV3ViT
+from genpose2_tpu_torch.models import backbones
 
 
 class ImageFeatureProvider:
-    """Builds the frozen backbone that ``cfg.backbone`` names (``.vit``)."""
+    """Builds the frozen backbone that ``cfg.backbone`` names (``.vit``), on
+    ``device`` when one is given."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
-        dt = torch.bfloat16 if cfg.backbone_dtype == "bfloat16" else None
-        if cfg.backbone == "dinov3_vits16plus":
-            self.vit = DinoV3ViT(
-                patch_size=cfg.patch_size, dim=cfg.dino_dim, depth=cfg.backbone_depth,
-                num_heads=6, num_storage_tokens=4, ffn_hidden=cfg.dino_dim * 4, dtype=dt)
-        elif cfg.backbone == "dinov2_vits16":
-            self.vit = ViT((cfg.img_size // cfg.patch_size) ** 2, patch_size=cfg.patch_size,
-                           dim=cfg.dino_dim, depth=cfg.backbone_depth, num_heads=6, dtype=dt)
-        else:
-            raise NotImplementedError(cfg.backbone)
+        self.vit = backbones.build(cfg, device)
         # intermediate layer ids, clipped into the (possibly truncated) depth
         self.layer_ids = tuple(min(i, cfg.backbone_depth - 1) for i in cfg.dino_layer_ids)
 

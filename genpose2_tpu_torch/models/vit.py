@@ -7,6 +7,13 @@ DINOv3 parameters carry the DINOv3 torch names (``cls_token``,
 ``.mlp.w1/w2/w3``, ``.ls2.gamma``, ``norm``), so ``weights.dinov3_state_dict``
 and a DINOv3 checkpoint load as they are.
 
+``DinoV3ViT`` takes its architecture from the registry
+(``models/backbones.py``): widths, heads, SwiGLU width, q/k/v with or
+without a bias (the ViT-7B/16 has none), storage tokens. With ``device`` and
+``weight_dtype`` it is built on that device with its matrices (the patch
+embedding's, q/k/v, the projections, w1/w2/w3) held in ``weight_dtype``;
+LayerNorms, biases, LayerScale gammas and the prefix tokens stay float32.
+
 The DINOv3 forward, with ``dtype`` None (float32) or bfloat16:
 
 - patch embedding as one product over flattened (p, p, 3) patches, float32
@@ -91,55 +98,72 @@ def _rotate_half(t: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 class _RopeEmbed(nn.Module):
-    def __init__(self, head_dim: int, base: float):
+    def __init__(self, head_dim: int, base: float, device=None):
         super().__init__()
         dq = head_dim // 4
-        self.register_buffer("periods", base ** (torch.arange(dq, dtype=torch.float32) / dq))
+        self.register_buffer("periods", base ** (torch.arange(dq, dtype=torch.float32,
+                                                              device=device) / dq))
 
 
 class _PatchEmbed(nn.Module):
-    def __init__(self, dim: int, patch: int):
+    def __init__(self, dim: int, patch: int, device=None,
+                 weight_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.proj = nn.Conv2d(3, dim, patch, stride=patch)
+        self.proj = nn.Conv2d(3, dim, patch, stride=patch, device=device)
+        if weight_dtype is not None:
+            self.proj.weight = nn.Parameter(self.proj.weight.detach().to(weight_dtype))
 
 
 class _LayerScale(nn.Module):
-    def __init__(self, dim: int, init: float = 1e-5):
+    def __init__(self, dim: int, init: float = 1e-5, device=None):
         super().__init__()
-        self.gamma = nn.Parameter(torch.full((dim,), init))
+        self.gamma = nn.Parameter(torch.full((dim,), init, device=device))
+
+
+def _linear(i: int, o: int, bias: bool = True, device=None,
+            weight_dtype: Optional[torch.dtype] = None) -> nn.Linear:
+    """``nn.Linear(i, o)`` built on ``device``; with ``weight_dtype`` its
+    weight is held in that dtype (the bias stays float32)."""
+    lin = nn.Linear(i, o, bias=bias, device=device)
+    if weight_dtype is not None:
+        lin.weight = nn.Parameter(lin.weight.detach().to(weight_dtype))
+    return lin
 
 
 class _Attention(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, qkv_bias: bool = True, **factory):
         super().__init__()
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = _linear(dim, 3 * dim, qkv_bias, **factory)
+        self.proj = _linear(dim, dim, **factory)
 
 
 class _SwiGLU(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, **factory):
         super().__init__()
-        self.w1, self.w2 = nn.Linear(dim, hidden), nn.Linear(dim, hidden)
-        self.w3 = nn.Linear(hidden, dim)
+        self.w1, self.w2 = _linear(dim, hidden, **factory), _linear(dim, hidden, **factory)
+        self.w3 = _linear(hidden, dim, **factory)
 
 
 class DinoV3Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, ffn_hidden: int):
+    def __init__(self, dim: int, num_heads: int, ffn_hidden: int, qkv_bias: bool = True,
+                 **factory):
         super().__init__()
+        device = factory.get("device")
         self.num_heads = num_heads
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = _Attention(dim)
-        self.ls1 = _LayerScale(dim)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = _SwiGLU(dim, ffn_hidden)
-        self.ls2 = _LayerScale(dim)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.attn = _Attention(dim, qkv_bias, **factory)
+        self.ls1 = _LayerScale(dim, device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.mlp = _SwiGLU(dim, ffn_hidden, **factory)
+        self.ls2 = _LayerScale(dim, device=device)
 
     def attention(self, h, sin, cos, n_valid: int, dt: torch.dtype, plain: bool):
         """qkv, RoPE and attention on h (B, N, C) -> proj output in dt; sin,
         cos (N, C) float32, per-head tiled."""
         N, C = h.shape[1], h.shape[2]
         H = self.num_heads
-        qkv = (mm(h, self.attn.qkv.weight.t(), dt) + self.attn.qkv.bias).to(dt)
+        qkv = mm(h, self.attn.qkv.weight.t(), dt)
+        qkv = (qkv if self.attn.qkv.bias is None else qkv + self.attn.qkv.bias).to(dt)
         q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:].contiguous()
         padded = N % (8 if dt == torch.float32 else 16) == 0
         if _INKERNEL_ROPE and padded:
@@ -207,15 +231,19 @@ class DinoV3ViT(nn.Module):
 
     def __init__(self, patch_size: int = 16, dim: int = 384, depth: int = 12,
                  num_heads: int = 6, num_storage_tokens: int = 4, ffn_hidden: int = 1536,
-                 rope_base: float = 100.0, dtype: Optional[torch.dtype] = None):
+                 rope_base: float = 100.0, dtype: Optional[torch.dtype] = None,
+                 qkv_bias: bool = True, device=None,
+                 weight_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.patch_size, self.num_heads, self.dtype = patch_size, num_heads, dtype
-        self.patch_embed = _PatchEmbed(dim, patch_size)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
-        self.storage_tokens = nn.Parameter(torch.zeros(1, num_storage_tokens, dim))
-        self.rope_embed = _RopeEmbed(dim // num_heads, rope_base)
-        self.blocks = nn.ModuleList(DinoV3Block(dim, num_heads, ffn_hidden) for _ in range(depth))
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        factory = {"device": device, "weight_dtype": weight_dtype}
+        self.patch_embed = _PatchEmbed(dim, patch_size, **factory)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, dim, device=device))
+        self.storage_tokens = nn.Parameter(torch.zeros(1, num_storage_tokens, dim, device=device))
+        self.rope_embed = _RopeEmbed(dim // num_heads, rope_base, device=device)
+        self.blocks = nn.ModuleList(DinoV3Block(dim, num_heads, ffn_hidden, qkv_bias, **factory)
+                                    for _ in range(depth))
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, layer_ids: Sequence[int] = (), plain: bool = False,

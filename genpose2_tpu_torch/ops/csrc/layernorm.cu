@@ -28,16 +28,26 @@
 //   after a block's first row.
 // - scalar: a lane holds the elements lane, lane + 32, ... (VPT of them).
 // Every entry takes the vector route where D and the pointers allow it, the
-// scalar route otherwise (any D to 1,024). Timed against each other on the
+// scalar route otherwise (any D to 1,024; plan.cuh:ln_plan picks the
+// instantiation). Timed against each other on the
 // H100 at the paths' shapes (PERF.md section 6), both near the bytes' bound
 // by device time: the vector route 3% faster for gp2_add_ln (bf16), 0-4% a
 // shape for gp2_residual_ln and even for gp2_ln. More rows a warp in flight,
 // or a grid of resident blocks striding over the rows, were slower.
+//
+// Rows wider than 1,024 (the DINOv3 ViT-7B's 4,096) take the wide route: a
+// 256-thread block a row, a thread holding PPT pieces (tid, tid + 256, ...)
+// of 4 elements where the vector route's conditions hold, of 1 otherwise;
+// each of the two sums is a warp shuffle, then the 8 warps' partial sums
+// through shared memory, added in the same order by every thread. Up to
+// 8,192 elements a row (PPT 8 pieces of 4, or 32 of 1). At 128 x 272 rows of
+// 4,096 bf16, add_ln moves 1.14 GB (0.34 ms at 3.35 TB/s).
 #include <stdint.h>
 
 #include <initializer_list>
 
 #include "common.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -164,6 +174,105 @@ ln_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __restr
   }
 }
 
+// Piece k of a thread: kE consecutive elements as float32, and back.
+template <typename T>
+__device__ __forceinline__ void get(const T* p, float (&e)[4]) {
+  const float4 f = load4(p);
+  e[0] = f.x, e[1] = f.y, e[2] = f.z, e[3] = f.w;
+}
+template <typename T>
+__device__ __forceinline__ void get(const T* p, float (&e)[1]) { e[0] = to_f32(*p); }
+template <typename T>
+__device__ __forceinline__ void put(T* p, const float (&e)[4]) {
+  store4(p, make_float4(e[0], e[1], e[2], e[3]));
+}
+template <typename T>
+__device__ __forceinline__ void put(T* p, const float (&e)[1]) { *p = from_f32<T>(e[0]); }
+
+// The block's sum of v: warp shuffles, then the warps' partial sums in warp
+// order (the same total in every thread). `red` holds kRowsPerBlock floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kRowsPerBlock; ++w) s += red[w];
+  __syncthreads();  // red is written again by the next sum
+  return s;
+}
+
+// The wide route: one row a block, PPT pieces of kE elements a thread.
+template <typename T, int PPT, int kE>
+__global__ void __launch_bounds__(kThreads)
+ln_wide_kernel(const T* __restrict__ x, const T* __restrict__ h,
+               const float* __restrict__ gamma, const float* __restrict__ scale,
+               const float* __restrict__ bias, T* __restrict__ x2_out, T* __restrict__ ln_out,
+               int D, float eps) {
+  __shared__ float red[kRowsPerBlock];
+  const size_t base = static_cast<size_t>(blockIdx.x) * D;
+  float v[PPT][kE];
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int c = kE * (threadIdx.x + kThreads * k);
+#pragma unroll
+    for (int i = 0; i < kE; ++i) v[k][i] = 0.f;
+    if (c < D) {
+      get(x + base + c, v[k]);
+      if (h != nullptr) {
+        float hv[kE];
+        get(h + base + c, hv);
+        if (gamma != nullptr) {
+          float g[kE];
+          get(gamma + c, g);
+#pragma unroll
+          for (int i = 0; i < kE; ++i) hv[i] = __fmul_rn(hv[i], g[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kE; ++i) v[k][i] = __fadd_rn(v[k][i], hv[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kE; ++i) sum += v[k][i];
+    }
+  }
+  const float mu = block_sum(sum, red) / static_cast<float>(D);
+  float sq = 0.f;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if (kE * (threadIdx.x + kThreads * k) < D) {
+#pragma unroll
+      for (int i = 0; i < kE; ++i) {
+        const float d = v[k][i] - mu;
+        sq += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(block_sum(sq, red) / static_cast<float>(D) + eps);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int c = kE * (threadIdx.x + kThreads * k);
+    if (c >= D) continue;
+    float sc[kE], bi[kE], y[kE];
+    get(scale + c, sc);
+    get(bias + c, bi);
+#pragma unroll
+    for (int i = 0; i < kE; ++i) y[i] = (v[k][i] - mu) * rstd * sc[i] + bi[i];
+    put(ln_out + base + c, y);
+    if (x2_out != nullptr) put(x2_out + base + c, v[k]);
+  }
+}
+
+template <typename T, int PPT, int kE>
+cudaError_t launch_wide_ppt(const void* x, const void* h, const float* gamma,
+                            const float* scale, const float* bias, void* x2, void* ln, int rows,
+                            int D, float eps, cudaStream_t stream) {
+  ln_wide_kernel<T, PPT, kE><<<rows, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(h), gamma, scale, bias,
+      static_cast<T*>(x2), static_cast<T*>(ln), D, eps);
+  return cudaGetLastError();
+}
+
 template <typename T, int VPT>
 cudaError_t launch_vpt(const void* x, const void* h, const float* gamma, const float* scale,
                        const float* bias, void* x2, void* ln, int rows, int D, float eps,
@@ -195,23 +304,47 @@ bool vector_route(int D, std::initializer_list<const void*> ptrs) {
   return true;
 }
 
+// The route of plan.cuh:ln_plan: a warp a row (pieces of 4, or of 1), or a
+// block a row past 1,024 elements.
 template <typename T>
 cudaError_t launch(const void* x, const void* h, const float* gamma, const float* scale,
                    const float* bias, void* x2, void* ln, int rows, int D, float eps,
-                   cudaStream_t stream) {
-  if (vector_route(D, {x, h, gamma, scale, bias, x2, ln})) {
-    if (D <= 128) return launch_vec<T, 1>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
-    if (D <= 256) return launch_vec<T, 2>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
-    if (D <= 384) return launch_vec<T, 3>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
-    if (D <= 512) return launch_vec<T, 4>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
-    if (D <= 1024) return launch_vec<T, 8>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
+                   cudaStream_t s) {
+  LnPlan p;
+  if (ln_plan(D, vector_route(D, {x, h, gamma, scale, bias, x2, ln}), &p) != 0) {
     return cudaErrorInvalidValue;
   }
-  if (D <= 128) return launch_vpt<T, 4>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
-  if (D <= 256) return launch_vpt<T, 8>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
-  if (D <= 384) return launch_vpt<T, 12>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
-  if (D <= 512) return launch_vpt<T, 16>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
-  if (D <= 1024) return launch_vpt<T, 32>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, stream);
+#define GP2_LN(fn, ...) return fn<T, __VA_ARGS__>(x, h, gamma, scale, bias, x2, ln, rows, D, eps, s)
+  if (p.wide && p.piece == 4) {
+    switch (p.pieces) {
+      case 2: GP2_LN(launch_wide_ppt, 2, 4);
+      case 4: GP2_LN(launch_wide_ppt, 4, 4);
+      case 8: GP2_LN(launch_wide_ppt, 8, 4);
+    }
+  } else if (p.wide) {
+    switch (p.pieces) {
+      case 8: GP2_LN(launch_wide_ppt, 8, 1);
+      case 16: GP2_LN(launch_wide_ppt, 16, 1);
+      case 32: GP2_LN(launch_wide_ppt, 32, 1);
+    }
+  } else if (p.piece == 4) {
+    switch (p.pieces) {
+      case 1: GP2_LN(launch_vec, 1);
+      case 2: GP2_LN(launch_vec, 2);
+      case 3: GP2_LN(launch_vec, 3);
+      case 4: GP2_LN(launch_vec, 4);
+      case 8: GP2_LN(launch_vec, 8);
+    }
+  } else {
+    switch (p.pieces) {
+      case 4: GP2_LN(launch_vpt, 4);
+      case 8: GP2_LN(launch_vpt, 8);
+      case 12: GP2_LN(launch_vpt, 12);
+      case 16: GP2_LN(launch_vpt, 16);
+      case 32: GP2_LN(launch_vpt, 32);
+    }
+  }
+#undef GP2_LN
   return cudaErrorInvalidValue;
 }
 
@@ -229,7 +362,7 @@ int dispatch(const void* x, const void* h, const float* gamma, const float* scal
 }  // namespace
 
 // x, h, ln (rows, D) in float32 (bf16 = 0) or bfloat16 (bf16 = 1); scale, bias
-// (D,) float32. D <= 1024. Returns a CUDA error code.
+// (D,) float32. D <= 8192. Returns a CUDA error code.
 extern "C" int gp2_residual_ln(const void* x, const void* h, const float* scale,
                                const float* bias, void* ln, int rows, int D, float eps,
                                int bf16, void* stream) {
@@ -244,7 +377,7 @@ extern "C" int gp2_add_ln(const void* x, const void* h, const float* gamma, cons
 }
 
 // ln = LN(x): x, ln (rows, D) in float32 (bf16 = 0) or bfloat16 (bf16 = 1);
-// scale, bias (D,) float32. D <= 1024. Returns a CUDA error code.
+// scale, bias (D,) float32. D <= 8192. Returns a CUDA error code.
 extern "C" int gp2_ln(const void* x, const float* scale, const float* bias, void* ln, int rows,
                       int D, float eps, int bf16, void* stream) {
   return dispatch(x, nullptr, nullptr, scale, bias, nullptr, ln, rows, D, eps, bf16, stream);

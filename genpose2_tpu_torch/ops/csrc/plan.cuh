@@ -1,6 +1,6 @@
 // Launch plans of the tensor-core kernels (ode_rk4.cu, fused_sa.cu,
-// relpe_attention.cu, vit_attention.cu's route) and of FPS, ball query and
-// ball count (fps.cu, ball_query.cu, ball_count.cu):
+// relpe_attention.cu, vit_attention.cu's route), of FPS, ball query and
+// ball count (fps.cu, ball_query.cu, ball_count.cu) and layernorm.cu's route:
 // row or query tile, ring depth, heads, warps or centroids of a block and
 // the shared-memory layout, from the shapes alone.
 //
@@ -498,6 +498,31 @@ inline int vit_attention_max_tokens(int D, int bf16, int smem_limit) {
   return n;
 }
 
+// ------------------------------------------------------------ LayerNorm
+
+// layernorm.cu's route for rows of D elements; `vec`: D a multiple of 4 and
+// every operand 16-byte aligned. A warp a row to 1,024 elements, a 256-thread
+// block a row past it (wide), to 8,192; a lane or thread holds `pieces`
+// pieces of `piece` consecutive elements (4: 8/16-byte loads, 1: scalar).
+struct LnPlan {
+  int wide;
+  int piece;
+  int pieces;
+};
+
+inline int ln_plan(int D, int vec, LnPlan* q) {
+  if (D < 1 || D > 8192) return -1;
+  q->wide = D > 1024;
+  q->piece = vec ? 4 : 1;
+  const int steps[2][5] = {{128, 256, 384, 512, 1024}, {2048, 4096, 8192, 8192, 8192}};
+  const int counts[2][2][5] = {{{4, 8, 12, 16, 32}, {1, 2, 3, 4, 8}},   // a warp a row
+                               {{8, 16, 32, 32, 32}, {2, 4, 8, 8, 8}}};  // a block a row
+  int k = 0;
+  while (D > steps[q->wide][k]) ++k;
+  q->pieces = counts[q->wide][vec ? 1 : 0][k];
+  return 0;
+}
+
 #ifdef GP2_PLAN_EXPORTS
 // The plans as int arrays, in the order of the structs' fields.
 extern "C" int gp2_relpe_plan(int B, int M, int C, int H, int bf16, int num_sms, int* out) {
@@ -523,5 +548,8 @@ extern "C" int gp2_ball_count_plan(int B, int N, int M, int num_sms, int* out) {
 }
 extern "C" int gp2_vit_attention_plan(int N, int D, int bf16, int smem_limit, int* out) {
   return vit_attention_plan(N, D, bf16, smem_limit, reinterpret_cast<VitAttentionPlan*>(out));
+}
+extern "C" int gp2_ln_plan(int D, int vec, int* out) {
+  return ln_plan(D, vec, reinterpret_cast<LnPlan*>(out));
 }
 #endif

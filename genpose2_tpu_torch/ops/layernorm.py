@@ -14,7 +14,8 @@ LayerNorm default, which every LayerNorm of the port uses):
 - ``fast_layernorm(x, scale, bias)`` = LN(x) in x's dtype, block 0's norm1
   on the ViT's bf16 stream when the block tails are deferred.
 
-Each launches ``csrc/layernorm.cu`` on CUDA tensors and runs its ``_plain``
+Each launches ``csrc/layernorm.cu`` on CUDA tensors (rows of up to 8,192:
+past 1,024 the kernel's wide route, a block a row) and runs its ``_plain``
 version on CPU tensors.
 """
 
@@ -28,6 +29,7 @@ import torch
 from genpose2_tpu_torch.ops import _cuda
 
 LN_EPS = 1e-6
+MAX_WIDTH = 8192  # csrc/layernorm.cu: rows past 1,024 take its wide route
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -57,8 +59,8 @@ def _check(x, h, vectors):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype {x.dtype}; the kernel takes float32 or bfloat16")
     D = x.shape[-1]
-    if D > 1024:
-        raise ValueError(f"row width {D}; the kernel takes at most 1024")
+    if D > MAX_WIDTH:
+        raise ValueError(f"row width {D}; the kernel takes at most {MAX_WIDTH}")
     if h is not None:
         _cuda.require(h, "h", x.dtype, tuple(x.shape), x.device)
     for name, t in vectors.items():

@@ -54,7 +54,7 @@ from genpose2_tpu_torch.parallel.mesh import active_mesh, batch_rand
 from genpose2_tpu_torch.training.ema import ema_init, ema_update
 from genpose2_tpu_torch.training.optim import ClippedOptimizer, global_norm, make_lr_schedule
 from genpose2_tpu_torch.training.ranking import ranking_loss, sort_results
-from genpose2_tpu_torch.utils.profiling import span
+from genpose2_tpu_torch.utils.profiling import note_backbone_weights, span
 
 # the diffusion time range of the ranking energies and of detection-mode
 # energies (genpose2_tpu/training/agent.py:485, 683)
@@ -162,8 +162,9 @@ class PoseAgent(_Trainable):
         # the frozen image backbone belongs to the agent, not to the model
         self.provider = None
         if cfg.model.dino != "none" and cfg.model.backbone != "none":
-            self.provider = ImageFeatureProvider(cfg.model)
-            self.provider.vit.to(self.device).eval()
+            self.provider = ImageFeatureProvider(cfg.model, device=self.device)
+            note_backbone_weights(sum(p.numel() * p.element_size()
+                                      for p in self.provider.vit.parameters()))
         self.lr_schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.optimizer = ClippedOptimizer(cfg.train.optimizer, self.lr_schedule,
                                           cfg.train.grad_clip)

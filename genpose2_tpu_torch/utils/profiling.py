@@ -29,7 +29,11 @@ whose counts they include, and reset by ``reset_counters()``:
   traced window's counts do not take in what ran before or after it;
 - ``kernel_builds`` (``kernel_builds.<library>``): ``nvcc`` runs, and
   ``kernel_load_s``: seconds in ``_cuda.library`` building or loading a
-  kernel library. These two cover the whole process; the reset leaves them.
+  kernel library;
+- ``backbone_weight_bytes``: bytes of the frozen backbones' parameters on
+  the agents' devices, summed over the agents built (each agent holds its
+  own), added as each agent builds its backbone.
+  These three cover the whole process; the reset leaves them.
 
 ``trace_context`` wraps a block in a ``torch.profiler`` trace (the CPU and,
 on a card, the CUDA activity) and writes it where the JAX package's trace
@@ -61,7 +65,7 @@ _unit_ids = itertools.count(1)
 
 _lock = threading.Lock()
 _counts: Counter = Counter()   # host_reads, units, unit.*
-_process: Counter = Counter()  # kernel_builds.<library>, kernel_load_s
+_process: Counter = Counter()  # kernel_builds.<library>, kernel_load_s, backbone_weight_bytes
 _alloc_base: Tuple[int, int] = (0, 0)
 
 
@@ -185,6 +189,12 @@ def note_kernel_load(library: str, seconds: float, built: bool) -> None:
             _process[f"kernel_builds.{library}"] += 1
 
 
+def note_backbone_weights(nbytes: int) -> None:
+    """An agent built a frozen backbone of ``nbytes`` of parameters."""
+    with _lock:
+        _process["backbone_weight_bytes"] += nbytes
+
+
 def counters() -> Dict[str, float]:
     """The counters named in the module's docstring, read now."""
     from genpose2_tpu_torch.ops import _cuda
@@ -198,14 +208,15 @@ def counters() -> Dict[str, float]:
                "units": _counts["units"],
                **{k: v for k, v in _counts.items() if k.startswith("unit.")},
                "kernel_builds": sum(builds.values()), **builds,
-               "kernel_load_s": _process["kernel_load_s"]}
+               "kernel_load_s": _process["kernel_load_s"],
+               "backbone_weight_bytes": _process["backbone_weight_bytes"]}
     out.update((f"launches.{k}", v) for k, v in _cuda.launch_counts.items())
     return out
 
 
 def reset_counters() -> None:
-    """Start every counter but ``kernel_builds`` and ``kernel_load_s`` again
-    from 0."""
+    """Start every counter but the process-wide ones (``kernel_builds``,
+    ``kernel_load_s``, ``backbone_weight_bytes``) again from 0."""
     global _alloc_base
     from genpose2_tpu_torch.ops import _cuda
 

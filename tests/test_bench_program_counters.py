@@ -18,6 +18,7 @@ from bench_port.harness.manifest import load_reader
 from bench_port.harness.runner import Context, Unit
 from bench_port.harness.span_idle import idle_outside_s, span_idle_s
 from bench_port.harness.trace import DeviceTrace, Spans, reduce_events
+import bench_port.conftest  # noqa: F401  (the tiny size of eval_streaming_ref's cells)
 from bench_port.tests.helpers import manifest, tiny_cell
 from genpose2_tpu_torch.utils import profiling
 from genpose2_tpu_torch.utils.profiling import recording, span, to_host

@@ -21,7 +21,7 @@ import torch
 
 import genpose2_tpu_torch.models.vit as port_vit
 from genpose2_tpu_torch.api import GenPose2
-from genpose2_tpu_torch.config import tiny_flagship_config, tiny_test_config
+from genpose2_tpu_torch.config import default_config, tiny_flagship_config, tiny_test_config
 from genpose2_tpu_torch.data import synthetic_frame
 from genpose2_tpu_torch.diffusion.sde import init_sde
 from genpose2_tpu_torch.models.attention import EfficientRelativePositionalEncoding
@@ -814,9 +814,121 @@ def test_layernorm_rows(card, bf16, D, rows):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     for key in ("layernorm", "residual_layernorm", "add_layernorm"):
         assert _cuda.launch_counts[key] == counts.get(key, 0) + 1
-    wide = _normal(g, (3, 1025), card, dt)
-    with pytest.raises(ValueError, match="at most 1024"):
-        fast_layernorm(wide, _normal(g, (1025,), card), _normal(g, (1025,), card))
+    wide = _normal(g, (3, 8193), card, dt)
+    with pytest.raises(ValueError, match="at most 8192"):
+        fast_layernorm(wide, _normal(g, (8193,), card), _normal(g, (8193,), card))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [1280, 1030, 4096, 8192])  # 1,030: no multiple of 4, pieces of 1
+@pytest.mark.parametrize("rows", [1, 7, 34817])  # 34,817: the 7B ViT's 128 x 272 rows + 1
+def test_layernorm_wide_rows(card, bf16, D, rows):
+    """The three LayerNorm entries past 1,024 (the wide route, a block a
+    row) against the plain versions, aligned and one element off."""
+    g = torch.Generator().manual_seed(D + rows)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    x, h = _normal(g, (rows, D), card, dt) * 2.0 + 0.5, _normal(g, (rows, D), card, dt)
+    gamma, scale, bias = (_normal(g, (D,), card) for _ in range(3))
+    # as test_layernorm_kernels_match_plain: float32 statistics in another
+    # order (over up to 8,192 terms), bf16 outputs one rounding of the value
+    tol = 2e-2 if bf16 else 2e-5
+    counts = dict(_cuda.launch_counts)
+    for xs, hs in ((x, h), (_offset(g, (rows, D), card, dt), _offset(g, (rows, D), card, dt))):
+        torch.testing.assert_close(fast_layernorm(xs, scale, bias),
+                                   fast_layernorm_plain(xs, scale, bias), rtol=tol, atol=tol)
+        torch.testing.assert_close(fast_residual_layernorm(xs, hs, scale, bias),
+                                   fast_residual_layernorm_plain(xs, hs, scale, bias), rtol=tol,
+                                   atol=tol)
+        for got, want in zip(fast_add_layernorm(xs, hs, gamma, scale, bias),
+                             fast_add_layernorm_plain(xs, hs, gamma, scale, bias)):
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    for key in ("layernorm", "residual_layernorm", "add_layernorm"):
+        assert _cuda.launch_counts[key] == counts.get(key, 0) + 2
+
+
+def test_vit7b_frame_on_card(card):
+    """GenPose2 with the DINOv3 ViT-7B/16 backbone (published widths, four of
+    its 40 blocks, bf16 held on the card) on one synthetic 640x480 frame:
+    the request runs the backbone once through the kernels (the attention
+    at head dim 128 and the wide add-LayerNorm a block each), and its
+    candidates agree with the same request on the plain versions."""
+    base = default_config()
+    cfg = base.replace(model=dataclasses.replace(base.model, backbone="dinov3_vit7b16",
+                                                 dino_dim=4096, backbone_depth=4,
+                                                 dino_layer_ids=(0, 1, 3)))
+    torch.manual_seed(36)
+    eng = GenPose2(cfg, energy=True, scale=True, num_steps=8, device=card)
+    assert eng.score_agent.provider.vit.blocks[0].attn.qkv.weight.dtype == torch.bfloat16
+    gen = torch.Generator(card).manual_seed(39)  # output layers start at zero
+    with torch.no_grad():
+        for agent in (eng.score_agent, eng.energy_agent):
+            for p in (*agent.model.parameters(), *agent.provider.vit.parameters()):
+                p.add_((torch.randn(p.shape, generator=gen, device=card) * 0.02).to(p.dtype))
+    rng = np.random.default_rng(37)
+    objs = synthetic_frame.random_scene(rng, 3, 640, 480, 600.0, depth=(0.5, 0.8))
+    raw = eng.front_end(synthetic_frame.render(rng, objs, 640, 480, 600.0))
+    n, K = len(raw["mask_ids"]), cfg.eval.eval_repeat_num
+    g = torch.Generator().manual_seed(38)
+    prior = torch.randn(n * K, 9, generator=g) * 0.3
+    t = torch.rand(n * K, 1, generator=g) * 9e-5 + 1e-5
+    before = dict(_cuda.launch_counts)
+    out = eng.serve_batch(raw, prior=prior, energy_t=t)
+    assert _cuda.launch_counts["vit_attention"] == before.get("vit_attention", 0) + 4
+    assert _cuda.launch_counts["add_layernorm"] == before.get("add_layernorm", 0) + 4
+    plain = eng.serve_batch(raw, prior=prior, energy_t=t, plain=True)
+    assert out["candidates"].shape == (n, K, 9) and bool(torch.isfinite(out["candidates"]).all())
+    # the kernels' and the plain versions' bf16 backbones differ by a bf16
+    # step here and there (test_vit7b_backbone_on_card_matches_plain); eight
+    # float32 RK4 steps carry that into the candidates (1.2e-3 on the H100)
+    torch.testing.assert_close(out["candidates"], plain["candidates"], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("bf16,B", [(True, 128), (False, 8)])
+def test_vit_attention_head_dim_128(card, bf16, B):
+    """The 7B ViT's attention: 32 heads of 128 over 272 tokens, 261 real
+    (B = 128 crops in bf16, the cell's batch); float32 at 8 takes the key
+    windows (a head's K and V past the shared memory)."""
+    g = torch.Generator().manual_seed(32)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (_normal(g, (B, 272, 4096), card, dt) for _ in range(3))
+    before = _cuda.launch_counts["vit_attention"]
+    got = vit_attention_tm(q, k, v, 32, n_valid=261)
+    assert _cuda.launch_counts["vit_attention"] == before + 1
+    want = vit_attention_tm_plain(q, k, v, 32, n_valid=261)
+    # as test_vit_attention_kernel_matches_plain, on the real rows
+    tol = 2e-2 if bf16 else 1e-5
+    torch.testing.assert_close(got[:, :261], want[:, :261], rtol=tol, atol=tol)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_vit7b_backbone_on_card_matches_plain(card):
+    """The DINOv3 ViT-7B/16 entry at its published widths (four of its 40
+    blocks), built on the card with its matrices in bf16: the kernels
+    (vit_attention_tm at head dim 128, the wide add-LayerNorm) against the
+    plain versions on the card, on 8 crops of 256 px."""
+    cfg = dataclasses.replace(tiny_flagship_config().model, backbone="dinov3_vit7b16",
+                              dino_dim=4096, backbone_depth=4, backbone_dtype="bfloat16",
+                              img_size=256, dino_layer_ids=(0, 1, 3))
+    torch.manual_seed(33)
+    prov = ImageFeatureProvider(cfg, device=card)
+    assert prov.vit.blocks[0].attn.qkv.weight.dtype == torch.bfloat16
+    gen = torch.Generator(card).manual_seed(34)
+    with torch.no_grad():
+        for p in prov.vit.parameters():
+            p.add_((torch.randn(p.shape, generator=gen, device=card) * 0.02).to(p.dtype))
+    rgb = torch.randn(8, 256, 256, 3, generator=gen, device=card)
+    before = dict(_cuda.launch_counts)
+    got = prov.patch_features(rgb)
+    assert _cuda.launch_counts["vit_attention"] == before.get("vit_attention", 0) + 4
+    assert _cuda.launch_counts["add_layernorm"] == before.get("add_layernorm", 0) + 4
+    want = prov.patch_features(rgb, plain=True)
+    for a, b in zip(got, want):
+        assert a.shape == (8, 256, 4096)
+        # the bf16 stream of two routes: the attention's and the LayerNorm's
+        # sums in another order, flipping a bf16 rounding (2^-8) here and
+        # there through four blocks and the norm; relative to the tap's
+        # largest value
+        assert float((a - b).abs().max()) <= 3e-2 * float(b.abs().max())
 
 
 def _offset(gen, shape, card, dtype=torch.float32):

@@ -2,8 +2,8 @@
 
 plan.cuh is plain C++: the host compiler builds it here into a small library
 with its C functions exported, so the plans that ode_rk4.cu, fused_sa.cu,
-relpe_attention.cu, fps.cu, ball_query.cu, ball_count.cu and vit_attention.cu
-launch with are checked without a card: for the flagship request, a tracking or frame call, the dense
+relpe_attention.cu, fps.cu, ball_query.cu, ball_count.cu, vit_attention.cu
+and layernorm.cu launch with are checked without a card: for the flagship request, a tracking or frame call, the dense
 configuration, the training path and the tests' shapes, each plan fits a
 block's 227 KB of shared memory, its sections do not overlap and start
 16-byte aligned, and the tiles are the ones the source notes describe.
@@ -55,6 +55,7 @@ def plan_lib(tmp_path_factory):
     lib.gp2_ball_query_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.gp2_ball_count_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.gp2_vit_attention_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.gp2_ln_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     return lib
 
 
@@ -461,3 +462,41 @@ def test_vit_attention_plan_refuses(plan_lib):
     assert vit_plan(plan_lib, 272, 136, False) is None
     assert vit_plan(plan_lib, 272, 0, True) is None
     assert vit_plan(plan_lib, 0, 64, True) is None
+
+
+def ln_plan(lib, D, vec):
+    out = (ctypes.c_int * 3)()
+    if lib.gp2_ln_plan(D, int(vec), out) != 0:
+        return None
+    return dict(zip(("wide", "piece", "pieces"), out))
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("D", [1, 48, 96, 128, 129, 190, 256, 384, 385, 512, 513, 1024, 1025,
+                               1030, 1280, 2048, 2049, 4096, 4099, 8192])
+def test_layernorm_plan(plan_lib, D, vec):
+    """Rows to 1,024 keep the warp-a-row routes they had before the wide
+    route (the same instantiations: a lane's pieces of 4, or elements), and
+    rows past it take a 256-thread block a row; every piece of a row has a
+    lane or thread, and no smaller instantiation would hold it."""
+    p = ln_plan(plan_lib, D, vec)
+    if D <= 1024:
+        steps = [128, 256, 384, 512, 1024]
+        counts = [1, 2, 3, 4, 8] if vec else [4, 8, 12, 16, 32]
+        assert p == {"wide": 0, "piece": 4 if vec else 1,
+                     "pieces": counts[next(k for k, s in enumerate(steps) if D <= s)]}
+        threads = 32
+    else:
+        assert p["wide"] == 1 and p["piece"] == (4 if vec else 1)
+        threads = 256
+    held = threads * p["pieces"] * p["piece"]
+    assert held >= D
+    smaller = {0: {True: [1, 2, 3, 4, 8], False: [4, 8, 12, 16, 32]},
+               1: {True: [2, 4, 8], False: [8, 16, 32]}}[p["wide"]][vec]
+    below = [c for c in smaller if c < p["pieces"]]
+    assert not below or threads * max(below) * p["piece"] < D
+
+
+def test_layernorm_plan_refuses(plan_lib):
+    assert ln_plan(plan_lib, 8193, True) is None and ln_plan(plan_lib, 8193, False) is None
+    assert ln_plan(plan_lib, 0, True) is None

@@ -8,7 +8,10 @@
   moved inside them only while tracing, ``reset_counters`` leaves the
   process-wide kernel counters;
 - ``GenPose2.serve_batch`` and ``SingleFrameEvaluator._run_one`` open the
-  spans of their stages, in one unit each.
+  spans of their stages, in one unit each, with an ``img_encoder`` span
+  around each agent's ImgEncoder;
+- ``backbone_weight_bytes`` sums the agents' frozen backbones as they are
+  built.
 """
 
 import collections
@@ -191,12 +194,15 @@ def test_serve_batch_opens_its_stages_in_one_unit(fresh):
     assert names[0] == "serve.request" and s[0].parent is None
     assert set(names) == {"serve.request", "collate", "backbone", "score.encode",
                           "score.sample", "energy.rank", "energy.encode", "aggregate",
-                          "scale.predict"}
+                          "scale.predict", "img_encoder"}
     assert {x.unit for x in s} == {s[0].unit} and s[0].unit is not None
     parent = {x.name: names[x.parent] for x in s if x.parent is not None}
     for name in ("collate", "backbone", "score.encode", "aggregate", "scale.predict"):
         assert parent[name] == "serve.request"
     assert parent["energy.encode"] == "energy.rank"
+    # each agent's ImgEncoder inside its encoder pass
+    assert sorted(names[x.parent] for x in s if x.name == "img_encoder") == \
+        ["energy.encode", "score.encode"]
     assert names.count("backbone") == 1  # the energy agent reuses the batch's features
     assert profiling.counters()["host_reads"] == 0
 
@@ -224,3 +230,37 @@ def test_run_one_opens_its_stages_in_one_unit(fresh):
     assert {x.unit for x in timer.spans} == {timer.spans[0].unit}
     assert set(out) == {"rotation", "translation", "lengths", "iou", "deg", "sht", "class_label"}
     assert profiling.counters()["host_reads"] == 0  # every tensor here is on the host
+
+
+def test_img_encoder_spans_in_the_trace_and_the_recorder(fresh):
+    from genpose2_tpu_torch.config import tiny_flagship_config
+    from genpose2_tpu_torch.training.agent import PoseAgent
+
+    torch.manual_seed(7)
+    agent = PoseAgent(tiny_flagship_config(), "score", device="cpu")
+    g = torch.Generator().manual_seed(8)
+    batch = {"pts": torch.rand(2, 128, 3, generator=g) - 0.5,
+             "roi_rgb": torch.randn(2, 64, 64, 3, generator=g),
+             "roi_xs": torch.randint(0, 64, (2, 128), generator=g),
+             "roi_ys": torch.randint(0, 64, (2, 128), generator=g)}
+    with recording() as timer, profile(activities=[ProfilerActivity.CPU]) as prof:
+        agent.extract_features(batch)
+    names = [x.name for x in timer.spans]
+    assert names == ["score.encode", "backbone", "img_encoder"]
+    assert names[timer.spans[2].parent] == "score.encode"
+    assert [r[0] for r in _ranges(prof, {"img_encoder"})] == ["img_encoder"]
+
+
+def test_backbone_weight_bytes_sums_the_agents_frozen_backbones(monkeypatch):
+    from genpose2_tpu_torch.config import tiny_flagship_config, tiny_test_config
+    from genpose2_tpu_torch.training.agent import PoseAgent
+
+    monkeypatch.setattr(profiling, "_process", collections.Counter())
+    assert profiling.counters()["backbone_weight_bytes"] == 0
+    PoseAgent(tiny_test_config(), "score", device="cpu")  # dino='none': no backbone
+    assert profiling.counters()["backbone_weight_bytes"] == 0
+    agents = [PoseAgent(tiny_flagship_config(), t, device="cpu") for t in ("score", "energy")]
+    want = sum(p.numel() * p.element_size() for a in agents for p in a.provider.vit.parameters())
+    assert want > 0 and profiling.counters()["backbone_weight_bytes"] == want
+    profiling.reset_counters()  # process-wide: the reset leaves it
+    assert profiling.counters()["backbone_weight_bytes"] == want
