@@ -69,6 +69,10 @@ struct Rk4Plan {
   // holds the last product's partial sums (kRk4Consumers x rows x 16 f32);
   // the ring; its full and empty mbarriers (nbuf each, 8 bytes)
   int off_state, off_p, off_q, off_ring, off_bar;
+  // 1: the float32 products by wgmma (rk4_wgmma_layout), whose sections
+  // start with P, Q (the activations' high and low TF32 parts) and the stage
+  // input's two parts at off_xt; 0: by mma.sync, off_xt unused
+  int wgmma, off_xt;
 };
 
 // The layout of `rows`-row blocks with a ring of nbuf slots of kRingBytes /
@@ -97,6 +101,7 @@ inline int rk4_layout(int R, int D, int P1, int P2, int bf16, int num_sms, int r
   q.off_ring = round_up(q.off_q + q_bytes, 128);  // the TMA's boxes land 128-byte aligned
   q.off_bar = q.off_ring + es * nbuf * q.ring_elems;
   q.smem_bytes = q.off_bar + 2 * 8 * nbuf;
+  q.wgmma = q.off_xt = 0;
   if (q.smem_bytes > kSmemLimit) return -1;
   *p = q;
   return 0;
@@ -123,6 +128,68 @@ inline int rk4_plan(int R, int D, int P1, int P2, int H1, int bf16, int num_sms,
     for (int o = 0; o < 6; ++o)
       if (rk4_layout(R, D, P1, P2, bf16, num_sms, rows, opts[o][0], opts[o][1], p) == 0) return 0;
   return -1;
+}
+
+// The float32 route by wgmma (ode_rk4.cu, namespace wg): a block's rows are
+// the products' N (a multiple of 8, 16 to 64); the activations (depth 256:
+// P1 = P2 = 256) and the stage input are K-major operands, panels of
+// kRk4Panel depths (128-byte rows, swizzled in 16-byte chunks by the row),
+// each in its high and low TF32 parts; the ring's slots hold 16 weight rows
+// of 264 float32 (kRingBytes / 2). Sections: P (high), Q (low), the stage
+// input (high, then low: one panel each), the state, the ring, the
+// barriers, and 1,024 bytes that the kernel skips to put P on a 1,024-byte
+// boundary (the swizzle's period). The last product's partial sums
+// (kRk4Consumers x rows rounded up to 16 x 16 f32) reuse P and Q.
+constexpr int kRk4Panel = 32;
+inline int rk4_wgmma_layout(int R, int D, int P1, int P2, int num_sms, int rows, int nbuf,
+                            Rk4Plan* p) {
+  if (rows % 8 || rows < 16 || rows > kRk4MaxRows || P1 != kChunkCols || P2 != kChunkCols ||
+      nbuf < 2 || nbuf > kRk4MaxBufs)
+    return -1;
+  Rk4Plan q;
+  q.rows = rows;
+  q.nbuf = nbuf;
+  q.ring_elems = kRingBytes / 2 / 4;
+  const long long blocks = (R + rows - 1LL) / rows;
+  q.rounds = static_cast<int>((blocks + num_sms - 1) / num_sms);
+  q.dpad = round_up(D, 4);
+  q.ldp = q.ldq = kRk4Panel;
+  q.wgmma = 1;
+  q.off_p = 0;
+  q.off_q = 4 * rows * kChunkCols;
+  q.off_xt = q.off_q + 4 * rows * kChunkCols;
+  q.off_state = q.off_xt + 2 * 4 * rows * kRk4Panel;
+  q.off_ring = round_up(q.off_state + 4 * 6 * rows * q.dpad, 128);
+  q.off_bar = q.off_ring + 4 * nbuf * q.ring_elems;
+  q.smem_bytes = q.off_bar + 2 * 8 * nbuf + 1024;
+  if (q.smem_bytes > kSmemLimit || 4 * kRk4Consumers * round_up(rows, 16) * 16 > q.off_xt)
+    return -1;
+  *p = q;
+  return 0;
+}
+
+// The wgmma route's plan: the smallest multiple of 8 rows (at least 16, at
+// most 64) that puts every block on the card in one round, a ring of three
+// slots (two where three do not fit); 0, or -1 where the route does not
+// take the shapes (rk4_plan's limits, and P1 = P2 = 256). 6,400 rows make
+// 115 blocks of 56, 3,200 rows 100 of 32, 600 rows 38 of 16.
+inline int rk4_wgmma_plan(int R, int D, int P1, int P2, int H1, int num_sms, Rk4Plan* p) {
+  if (R < 1 || D < 1 || D > 16 || H1 < 1 || num_sms < 1 || H1 % kChunkCols ||
+      n_chunks(H1) > kRk4MaxChunks)
+    return -1;
+  const long long per_sm = (R + num_sms - 1LL) / num_sms;
+  const int rows = per_sm >= kRk4MaxRows ? kRk4MaxRows : imax(16, round_up(static_cast<int>(per_sm), 8));
+  for (int nbuf = 3; nbuf >= 2; --nbuf)
+    if (rk4_wgmma_layout(R, D, P1, P2, num_sms, rows, nbuf, p) == 0) return 0;
+  return -1;
+}
+
+// The plan gp2_rk4 launches: float32 by wgmma (faster at every shape the
+// port launches, PERF.md section 6; -1 where its plan does not fit), bf16 by
+// mma.sync (rk4_plan).
+inline int rk4_route(int R, int D, int P1, int P2, int H1, int bf16, int num_sms, Rk4Plan* p) {
+  return bf16 ? rk4_plan(R, D, P1, P2, H1, bf16, num_sms, p)
+              : rk4_wgmma_plan(R, D, P1, P2, H1, num_sms, p);
 }
 
 // ------------------------------------------------------------------- SA
@@ -531,6 +598,10 @@ extern "C" int gp2_relpe_plan(int B, int M, int C, int H, int bf16, int num_sms,
 extern "C" int gp2_rk4_plan(int R, int D, int P1, int P2, int H1, int bf16, int num_sms,
                             int* out) {
   return rk4_plan(R, D, P1, P2, H1, bf16, num_sms, reinterpret_cast<Rk4Plan*>(out));
+}
+extern "C" int gp2_rk4_route(int R, int D, int P1, int P2, int H1, int bf16, int num_sms,
+                             int* out) {
+  return rk4_route(R, D, P1, P2, H1, bf16, num_sms, reinterpret_cast<Rk4Plan*>(out));
 }
 extern "C" int gp2_sa_plan(int n_scales, const int* nsample, const int* num_layers,
                            const int* widths, int n_staged, int bf16, int* out) {

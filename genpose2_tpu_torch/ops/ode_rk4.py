@@ -147,6 +147,8 @@ def rk4_operands(x0, weights, sde, T0, num_steps, compute_dtype):
         raise ValueError(f"pose dim {D}: the kernel's last product holds at most 16 columns")
     if P1 % 256 or P2 % 256 or H1 % 256:
         raise ValueError(f"widths {P1}, {P2}, {H1}: the kernel takes multiples of 256 columns")
+    if dt == torch.float32 and (P1, P2) != (256, 256):
+        raise ValueError(f"pose MLP widths {P1}, {P2}: the float32 kernel holds 256 and 256")
     if H1 > 2048:
         raise ValueError(f"heads' width {H1}: the kernel walks at most 8 chunks of 256 columns")
     trows, scal = _time_tables(weights, sde, T0, float(sde.eps), num_steps)
@@ -168,16 +170,18 @@ def _rk4_cuda(x0, weights, sde, T0, num_steps, compute_dtype):
     tensors, ints = rk4_operands(x0, weights, sde, T0, num_steps, compute_dtype)
     lib = _cuda.library("ode_rk4")
     lib.gp2_rk4.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.gp2_rk4.restype = ctypes.c_int
-    rounds = ctypes.c_int(0)
+    rounds, wgmma = ctypes.c_int(0), ctypes.c_int(0)
     code = lib.gp2_rk4(*(t.data_ptr() for t in tensors), *ints, _cuda.stream_ptr(x0),
-                       ctypes.byref(rounds))
+                       ctypes.byref(rounds), ctypes.byref(wgmma))
     _cuda.check(lib, code, "fused_rk4_integrate")
     _cuda.launch_counts["fused_rk4"] += 1
     # the launch's rounds of blocks on the card, from its plan (one where
     # every block of 64 rows or fewer fits on an SM at once)
     _cuda.launch_counts["fused_rk4_rounds"] += rounds.value
+    # launches whose float32 products ran on wgmma (plan.cuh:rk4_route)
+    _cuda.launch_counts["fused_rk4_wgmma"] += wgmma.value
     return tensors[1]
 
 

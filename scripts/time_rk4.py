@@ -4,7 +4,7 @@ time the variants its launch plan chooses among; every turn's output is
 checked against the plain version.
 
     python3 scripts/time_rk4.py --parent DIR [--out FILE] [--also DIR ...]
-        [--phases alternate,variants]
+        [--phases alternate,variants] [--dtypes float32,bfloat16]
 
 Shapes (D = 9, H1 = 768 unless named; chip_smoke.py's draws): the request
 (3,200 rows, 50 steps, T0 0.55), a tracking call (600 rows, 100 steps, T0
@@ -19,11 +19,16 @@ Each turn records ``device_ms`` (torch.profiler, chip_smoke.py's: the kernel
 alone) and whether the output is within the gpu tests' bounds of the plain
 version (float32 2e-4 / 1e-4, bf16 1e-2).
 
+Each turn of this checkout names the route its plan took (``route``:
+``wgmma`` or ``mma.sync``, plan.cuh:rk4_route).
+
 Variants (``variants``): this checkout's source once more, with ``-Xptxas
 -v`` (registers and spills go to FILE), beside an entry that takes the row
-tile and the ring (slots of kRingBytes / slot_div bytes, nbuf of them; rows
-0: the plan's choice) from the caller, timed at the cells' shape, the
-request's and a tracking call's.
+tile and the ring (float32, the wgmma route: rows a multiple of 8, nbuf
+16-row slots; bf16, mma.sync: slots of kRingBytes / slot_div bytes, nbuf of
+them; rows 0: the plan's choice) from the caller, timed at the cells'
+shape, the request's and a tracking call's. The parent's turns time the
+float32 mma.sync route beside the wgmma route.
 
 ``--also DIR``: another build of ``ode_rk4.cu`` with this checkout's entry
 (a copy edited to leave something out, or to stage the weights another
@@ -49,13 +54,14 @@ extern "C" int gp2_rk4_variant(const float* x0, float* out, const float* stat,
                                const float* b0, const void* w1, const float* b1, const void* wp,
                                const void* w2, const float* b2, int R, int D, int P1, int P2,
                                int H1, int n, int bf16, void* stream, int rows, int slot_div,
-                               int nbuf) {
+                               int nbuf, int wgmma) {
   Params P = {x0, out, stat, trows, scal, w0, b0, w1, b1, wp, w2, b2, R, D, P1, P2, H1, n};
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = rows == 0 ? rk4_plan(R, D, P1, P2, H1, bf16, sms, &P.plan)
+  const int rc = rows == 0 ? rk4_route(R, D, P1, P2, H1, bf16, sms, &P.plan)
+                 : wgmma    ? rk4_wgmma_layout(R, D, P1, P2, sms, rows, nbuf, &P.plan)
                             : rk4_layout(R, D, P1, P2, bf16, sms, rows, slot_div, nbuf, &P.plan);
   if (rc != 0) return -1;
   return static_cast<int>(launch_plan(P, bf16, static_cast<cudaStream_t>(stream)));
@@ -73,13 +79,14 @@ SHAPES = [("request", 3200, 50, 0.55, 9, "Rx_Ry_and_T"),
           ("cells_100", 6400, 100, 0.55, 9, "Rx_Ry_and_T"),
           ("cells_500", 6400, 500, 0.55, 9, "Rx_Ry_and_T")]
 
-# (rows, slot_div, nbuf) at a shape's rows
-VARIANTS = {6400: [(64, 2, 4), (64, 2, 3), (64, 2, 2), (64, 1, 2), (32, 1, 4), (32, 1, 2)],
-            3200: [(32, 1, 4), (32, 1, 3), (32, 2, 4), (32, 1, 2), (16, 1, 4)],
-            600: [(16, 1, 4), (16, 1, 2), (16, 2, 4)]}
-BF16_VARIANTS = {6400: [(64, 1, 4), (64, 1, 3), (64, 2, 4), (64, 1, 2)]}
-ALSO_RINGS = {"float32": [(64, 2, 2), (64, 2, 4), (64, 1, 2)],
-              "bfloat16": [(64, 1, 2), (64, 1, 4)]}
+# (rows, slot_div, nbuf, wgmma) at a shape's rows: float32 on the wgmma
+# route (slot_div unused), bf16 on mma.sync
+VARIANTS = {6400: [(56, 0, 3, 1), (56, 0, 2, 1), (64, 0, 3, 1), (48, 0, 3, 1)],
+            3200: [(32, 0, 3, 1), (24, 0, 3, 1), (40, 0, 3, 1)],
+            600: [(16, 0, 3, 1), (16, 0, 2, 1)]}
+BF16_VARIANTS = {6400: [(64, 1, 4, 0), (64, 1, 2, 0)]}
+ALSO_RINGS = {"float32": [(64, 0, 3, 1)],
+              "bfloat16": [(64, 1, 2, 0), (64, 1, 4, 0)]}
 
 
 def main():
@@ -89,6 +96,7 @@ def main():
     ap.add_argument("--also", action="append", default=[],
                     help="a directory holding another ode_rk4.cu to time at the cells' shape")
     ap.add_argument("--phases", default="alternate,variants")
+    ap.add_argument("--dtypes", default="float32,bfloat16")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -132,11 +140,12 @@ def main():
         also[label] = ctypes.CDLL(out)
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     own = _cuda.library("ode_rk4")
-    own.gp2_rk4.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr, ctypes.POINTER(c_int)]
+    own.gp2_rk4.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr] + [ctypes.POINTER(c_int)] * 2
     parent = libs["parent", "ode_rk4"]
-    parent.gp2_rk4.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr]
+    parent.gp2_rk4.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr, ptr]  # the stream, rounds
     for lib in [libs["variant", "ode_rk4"], *also.values()]:
-        lib.gp2_rk4_variant.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr] + [c_int] * 3
+        lib.gp2_rk4_variant.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr] + [c_int] * 4
+    route = c_int(0)
 
     gen = torch.Generator().manual_seed(smoke.SEED + 20)
     sde = init_sde("ve")
@@ -156,9 +165,9 @@ def main():
     def call(kind, tensors, ints, variant=None):
         ptrs = [t.data_ptr() for t in tensors]
         if kind == "parent":
-            code = parent.gp2_rk4(*ptrs, *ints, stream())
+            code = parent.gp2_rk4(*ptrs, *ints, stream(), None)
         elif kind == "new":
-            code = own.gp2_rk4(*ptrs, *ints, stream(), None)
+            code = own.gp2_rk4(*ptrs, *ints, stream(), None, ctypes.byref(route))
         else:
             code = kind.gp2_rk4_variant(*ptrs, *ints, stream(), *variant)
         checked(code, f"rk4 {variant}")
@@ -184,7 +193,7 @@ def main():
                                                    dtype)
         return plains[label, dtype]
 
-    for dtype in ("float32", "bfloat16"):
+    for dtype in args.dtypes.split(","):
         for label, rows, steps, T0, D, head in SHAPES:
             tensors, ints = operands(D, rows, steps, T0, dtype)
             shape = {"shape": label, "dtype": dtype, "R": rows, "steps": steps, "T0": T0, "D": D,
@@ -196,24 +205,27 @@ def main():
                     def fn(turn=turn):
                         return call(turn, tensors, ints)
                     ok = within(fn().clone(), want, dtype)
-                    emit({**shape, "variant": turn, "turn": i, "device_ms": device_ms(fn, reps),
-                          "within": ok})
+                    line = {**shape, "variant": turn, "turn": i, "device_ms": device_ms(fn, reps),
+                            "within": ok}
+                    if turn == "new":
+                        line["route"] = "wgmma" if route.value else "mma.sync"
+                    emit(line)
             if "variants" in phases and label in ("request", "tracking", "cells_100"):
                 table = VARIANTS if dtype == "float32" else BF16_VARIANTS
                 for v in table.get(rows, []):
                     def fn(v=v):
                         return call(libs["variant", "ode_rk4"], tensors, ints, v)
                     ok = within(fn().clone(), plain(label, D, rows, steps, T0, dtype), dtype)
-                    emit({**shape, "variant": "rows{}_div{}_nbuf{}".format(*v),
+                    emit({**shape, "variant": "rows{}_div{}_nbuf{}_wgmma{}".format(*v),
                           "device_ms": device_ms(fn, reps), "within": ok})
             if label in ("request", "tracking", "cells_100"):
                 rings = ALSO_RINGS[dtype] if label == "cells_100" else []
                 for name, lib in also.items():
-                    for v in [(0, 0, 0)] + rings:
+                    for v in [(0, 0, 0, 0)] + rings:
                         def fn(v=v, lib=lib):
                             return call(lib, tensors, ints, v)
                         ok = within(fn().clone(), plain(label, D, rows, steps, T0, dtype), dtype)
-                        emit({**shape, "variant": f"{name}_rows{v[0]}_div{v[1]}_nbuf{v[2]}",
+                        emit({**shape, "variant": f"{name}_rows{v[0]}_div{v[1]}_nbuf{v[2]}_wgmma{v[3]}",
                               "device_ms": device_ms(fn, reps), "within": ok})
     log.close()
     return 0

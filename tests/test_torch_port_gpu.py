@@ -371,8 +371,10 @@ def test_rk4_kernel_matches_plain(card, mode):
     (3200, 50, 0.55),   # a request: 64 objects x 50 candidates
     (6400, 100, 0.55),  # the benchmark's cells: 128 objects x 50, 100 blocks of 64
     (6400, 500, 0.55),
-    (4300, 20, 0.55),   # blocks of 48 rows
+    (4300, 20, 0.55),   # blocks of 48 rows (float32: 40)
     (8449, 10, 0.55),   # one row past 64 x 132: 64-row blocks in two rounds
+    (6400, 500, 0.15),  # the cells' rows from a tracking call's T0
+    (64 * 132, 20, 0.55),  # the most one round holds: 132 blocks of 64
 ])
 def test_rk4_kernel_flagship_widths(card, dtype, mode, R, steps, T0):
     """The score net at its real widths (pose MLP 256/256, three 256-wide
@@ -386,8 +388,11 @@ def test_rk4_kernel_flagship_widths(card, dtype, mode, R, steps, T0):
         w = fast_score_weights(net, feat)
         assert (w["W1_pose"].shape, w["W2bd"].shape) == ((256, 768), (768, 9))
         before = _cuda.launch_counts["fused_rk4"]
+        wgmma = _cuda.launch_counts["fused_rk4_wgmma"]
         got = fused_rk4_integrate(x0, w, sde, T0, steps, dtype)
         assert _cuda.launch_counts["fused_rk4"] == before + 1
+        # float32 on the wgmma route (plan.cuh:rk4_route), bf16 on mma.sync
+        assert _cuda.launch_counts["fused_rk4_wgmma"] == wgmma + (dtype == "float32")
         want = fused_rk4_plain(x0, w, sde, T0, steps, dtype)
     # chip_smoke.py's bounds: f32 the JAX package's for the fused kernel
     # against the scan; bf16 looser (t rows kept f32 where the scan rounds)
@@ -414,10 +419,13 @@ def test_rk4_kernel_one_launch_one_round(card, dtype):
         fused_rk4_integrate(x0, w, sde, 0.55, 5, dtype)  # built and loaded
         torch.cuda.synchronize()
         before = _cuda.launch_counts["fused_rk4_rounds"]
+        wgmma = _cuda.launch_counts["fused_rk4_wgmma"]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fused_rk4_integrate(x0, w, sde, 0.55, 5, dtype)
             torch.cuda.synchronize()
     assert _cuda.launch_counts["fused_rk4_rounds"] == before + 1
+    # fused_rk4_wgmma: one a launch on the wgmma route (float32), none on bf16
+    assert _cuda.launch_counts["fused_rk4_wgmma"] == wgmma + (dtype == "float32")
     rx = re.compile(r"\brk4_kernel\b")
     launches = sum(ev.count for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA and rx.search(ev.key))
@@ -425,15 +433,16 @@ def test_rk4_kernel_one_launch_one_round(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rk4_kernel_unaligned_weights(card, dtype):
+@pytest.mark.parametrize("R", [3200, 6400])
+def test_rk4_kernel_unaligned_weights(card, dtype, R):
     """Weight matrices whose base is not 16-byte aligned (views one element
     into a buffer) cannot be copied by the TMA: the wrapper copies them to
     aligned storage, to the bounds of test_rk4_kernel_flagship_widths."""
     sde = init_sde("vp")
     net = _randomize(PoseScoreNet(sde.marginal_std, 9, "Rx_Ry_and_T", 128), 19).to(card)
     g = torch.Generator().manual_seed(20)
-    feat = torch.randn(3200, 128, generator=g).to(card)
-    x0 = (torch.randn(3200, 9, generator=g) * 0.55).to(card)
+    feat = torch.randn(R, 128, generator=g).to(card)
+    x0 = (torch.randn(R, 9, generator=g) * 0.55).to(card)
     dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
     def unaligned(w):
@@ -454,6 +463,24 @@ def test_rk4_kernel_unaligned_weights(card, dtype):
     atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,steps", [(600, 20), (6400, 100)])
+def test_rk4_kernel_repeats_bit_for_bit(card, dtype, R, steps):
+    """Two launches on the same operands give the same bits: the partial
+    slopes are added in a fixed order on both routes (no atomics)."""
+    sde = init_sde("ve")
+    net = _randomize(PoseScoreNet(sde.marginal_std, 9, "Rx_Ry_and_T", 128), 21).to(card)
+    g = torch.Generator().manual_seed(22)
+    feat = torch.randn(R, 128, generator=g).to(card)
+    x0 = (torch.randn(R, 9, generator=g) * 0.55).to(card)
+    with torch.no_grad():
+        w = fast_score_weights(net, feat)
+        first = fused_rk4_integrate(x0, w, sde, 0.55, steps, dtype)
+        second = fused_rk4_integrate(x0, w, sde, 0.55, steps, dtype)
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
 
 
 # the Fus encoder's stage 2 and stage 3 (config.py: PointNet2Config.mlps)
@@ -1211,7 +1238,9 @@ def test_tiny_evaluator_streaming_on_card_kernels_match_plain(card, tmp_path):
 @pytest.mark.parametrize("R,steps,T0", [
     (600, 100, 0.15),   # a tracking call: 12 objects x 50 candidates
     (3200, 50, 0.55),   # a request: 64 objects x 50 candidates
-    (6400, 100, 0.55),  # 128 objects x 50: blocks of 64 rows
+    (6400, 100, 0.55),  # 128 objects x 50: blocks of 64 rows (float32: 56)
+    (6400, 500, 0.55),  # the eval cells' steps
+    (4300, 20, 0.55),   # float32 blocks of 40 rows
 ])
 def test_rk4_kernel_pose_mode_widths(card, dtype, D, head, R, steps, T0):
     """The quaternion modes' score net (R_and_T: two 256-wide heads, D = 7)
@@ -1225,8 +1254,10 @@ def test_rk4_kernel_pose_mode_widths(card, dtype, D, head, R, steps, T0):
         w = fast_score_weights(net, feat)
         assert (w["W1_pose"].shape, w["W2bd"].shape) == ((256, 512), (512, D))
         before = _cuda.launch_counts["fused_rk4"]
+        wgmma = _cuda.launch_counts["fused_rk4_wgmma"]
         got = fused_rk4_integrate(x0, w, sde, T0, steps, dtype)
         assert _cuda.launch_counts["fused_rk4"] == before + 1
+        assert _cuda.launch_counts["fused_rk4_wgmma"] == wgmma + (dtype == "float32")
         want = fused_rk4_plain(x0, w, sde, T0, steps, dtype)
     # the bounds of test_rk4_kernel_flagship_widths (chip_smoke.py's)
     atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)

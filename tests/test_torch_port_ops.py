@@ -28,7 +28,8 @@ from genpose2_tpu_torch.ops import _cuda
 from genpose2_tpu_torch.ops.ball_query import ball_count, ball_count_plain, ball_query
 from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
 from genpose2_tpu_torch.ops.fused_sa import fused_sa_stage, fused_sa_stage_plain
-from genpose2_tpu_torch.ops.ode_rk4 import _time_tables, fused_rk4_integrate, fused_rk4_plain
+from genpose2_tpu_torch.ops.ode_rk4 import (_time_tables, fused_rk4_integrate, fused_rk4_plain,
+                                            rk4_operands)
 
 
 def _t(a):
@@ -159,6 +160,28 @@ def test_fused_rk4_matches_jax(mode):
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
     got = fused_rk4_integrate(_t(x0), _to_torch(w), init_sde(mode), T0, n).numpy()
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,P1,P2,refused", [
+    ("float32", 256, 256, False), ("float32", 512, 256, True), ("float32", 256, 512, True),
+    ("bfloat16", 512, 256, False), ("bfloat16", 256, 512, False),
+])
+def test_rk4_operands_widths(dtype, P1, P2, refused):
+    """The kernel's float32 route (wgmma) holds a 256-wide pose MLP, the
+    score net's; bf16 (mma.sync) takes any multiple of 256."""
+    w = _to_torch(_score_weights(7, 8))
+    g = torch.Generator().manual_seed(8)
+    H1 = w["static"].shape[1]
+    w["pose_mlp"] = {"Dense_0": {"kernel": torch.randn(9, P1, generator=g), "bias": torch.zeros(P1)},
+                     "Dense_1": {"kernel": torch.randn(P1, P2, generator=g), "bias": torch.zeros(P2)}}
+    w["W1_pose"] = torch.randn(P2, H1, generator=g)
+    x0 = torch.randn(8, 9, generator=g)
+    if refused:
+        with pytest.raises(ValueError, match="pose MLP widths"):
+            rk4_operands(x0, w, init_sde("ve"), 0.55, 3, dtype)
+    else:
+        _, ints = rk4_operands(x0, w, init_sde("ve"), 0.55, 3, dtype)
+        assert ints == (8, 9, P1, P2, H1, 3, int(dtype == "bfloat16"))
 
 
 @pytest.mark.parametrize("mode", ["ve", "vp"])

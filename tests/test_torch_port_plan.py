@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "genpose2_tpu_torch" / "ops" / "csr
 SMEM_LIMIT = 232448  # 227 KB: the dynamic shared memory of one H100 block
 H100_SMS = 132
 RK4_FIELDS = ("rows", "rounds", "nbuf", "ring_elems", "dpad", "ldp", "ldq", "smem_bytes",
-              "off_state", "off_p", "off_q", "off_ring", "off_bar")
+              "off_state", "off_p", "off_q", "off_ring", "off_bar", "wgmma", "off_xt")
 SA_FIELDS = ("rows", "centroids", "nbuf", "ring_elems", "lda", "ldb", "max_cout", "idx_stride", "smem_bytes",
              "off_acc", "off_xyz", "off_idx", "off_nrow", "off_rstart", "off_rowc", "off_rowp",
              "off_a", "off_b", "off_ring")
@@ -48,6 +48,7 @@ def plan_lib(tmp_path_factory):
                    text=True, check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     lib.gp2_rk4_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.gp2_rk4_route.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.gp2_sa_plan.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
     lib.gp2_relpe_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -62,6 +63,14 @@ def plan_lib(tmp_path_factory):
 def rk4_plan(lib, R, bf16, D=9, P1=256, P2=256, H1=768, sms=H100_SMS):
     out = (ctypes.c_int * len(RK4_FIELDS))()
     if lib.gp2_rk4_plan(R, D, P1, P2, H1, int(bf16), sms, out) != 0:
+        return None
+    return dict(zip(RK4_FIELDS, out))
+
+
+def rk4_route(lib, R, bf16, D=9, P1=256, P2=256, H1=768, sms=H100_SMS):
+    """The plan gp2_rk4 launches (its ``wgmma`` field names the route)."""
+    out = (ctypes.c_int * len(RK4_FIELDS))()
+    if lib.gp2_rk4_route(R, D, P1, P2, H1, int(bf16), sms, out) != 0:
         return None
     return dict(zip(RK4_FIELDS, out))
 
@@ -101,6 +110,28 @@ def _assert_rk4_layout(p, bf16):
                        ("off_bar", 16 * p["nbuf"])])
     # the TMA's boxes land 128-byte aligned
     assert p["off_ring"] % 128 == 0 and p["ring_elems"] * es % 128 == 0
+    assert (p["wgmma"], p["off_xt"]) == (0, 0)
+
+
+def _assert_rk4_wgmma_layout(p):
+    """The wgmma route's sections in order: P and Q (the activations'
+    high and low TF32 parts, rows x 256 f32 each, which also hold the 8
+    consumer warps' partial slopes), the stage input's two parts (a panel of
+    32 f32 a row each), the state, the ring of 16-row float32 slots, the
+    barriers, then 1,024 bytes for the kernel to put P on a 1,024-byte
+    boundary; the K-major panels (rows x 128 bytes) keep that alignment."""
+    rows = p["rows"]
+    assert p["wgmma"] == 1 and rows % 8 == 0 and 16 <= rows <= 64
+    assert (p["ldp"], p["ldq"], p["ring_elems"]) == (32, 32, 16 * 264)
+    assert 4 * 8 * ((rows + 15) // 16 * 16) * 16 <= p["off_xt"]
+    sections = [("off_p", 4 * rows * 256), ("off_q", 4 * rows * 256), ("off_xt", 2 * 4 * rows * 32),
+                ("off_state", 4 * 6 * rows * p["dpad"]), ("off_ring", 4 * p["nbuf"] * p["ring_elems"]),
+                ("off_bar", 16 * p["nbuf"])]
+    assert p["off_p"] == 0 and p["off_ring"] % 128 == 0
+    for field in ("off_q", "off_xt"):
+        assert p[field] % 1024 == 0, field
+    _assert_layout({**p, "smem_bytes": p["smem_bytes"] - 1024}, sections)
+    assert p["smem_bytes"] <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -153,6 +184,53 @@ def test_rk4_plan_widest_state(plan_lib, bf16, R):
     _assert_rk4_layout(p, bf16)
 
 
+@pytest.mark.parametrize("R,rows,rounds", [
+    (600, 16, 1),                     # a tracking call: 38 blocks of 16
+    (3200, 32, 1),                    # a request: 100 blocks of 32
+    (4300, 40, 1),                    # 33 rows an SM: 108 blocks of 40
+    (6400, 56, 1),                    # the benchmark's cells: 115 blocks of 56
+    (64 * 132, 64, 1),                # the most one round holds
+    (64 * 132 + 1, 64, 2),            # past it, 64-row blocks in rounds
+])
+def test_rk4_route_float32_wgmma(plan_lib, R, rows, rounds):
+    """float32 takes the wgmma route at every row count the port launches:
+    the smallest multiple of 8 rows (16 to 64) that puts every block on the
+    card in one round, the ring three 16-row slots deep."""
+    p = rk4_route(plan_lib, R, False)
+    assert p is not None and p["wgmma"] == 1
+    assert (p["rows"], p["rounds"], p["nbuf"]) == (rows, rounds, 3)
+    _assert_rk4_wgmma_layout(p)
+
+
+@pytest.mark.parametrize("R", [1, 37, 600, 3200, 4300, 6400, 64 * 132, 64 * 132 + 1])
+def test_rk4_route_bf16_mma_sync(plan_lib, R):
+    """bf16 never takes the wgmma route: its plan is rk4_plan's."""
+    p = rk4_route(plan_lib, R, True)
+    assert p is not None and p["wgmma"] == 0
+    assert p == rk4_plan(plan_lib, R, True)
+
+
+@pytest.mark.parametrize("D", [6, 7, 9, 16])
+@pytest.mark.parametrize("H1", [512, 768])
+@pytest.mark.parametrize("R", [600, 3200, 6400, 64 * 132])
+def test_rk4_route_wgmma_layout_fits(plan_lib, D, H1, R):
+    """The wgmma route's layout fits 227 KB at every pose width (D = 6, 7,
+    9 and the widest, 16) and both heads' widths, with three ring slots."""
+    p = rk4_route(plan_lib, R, False, D=D, H1=H1)
+    assert p is not None and p["wgmma"] == 1 and p["nbuf"] == 3
+    assert p["dpad"] == (D + 3) // 4 * 4
+    _assert_rk4_wgmma_layout(p)
+
+
+def test_rk4_route_float32_only_256_wide_pose_mlp(plan_lib):
+    """float32 runs only on the wgmma route, whose activations are 256 wide:
+    a 512-wide pose MLP is refused there (bf16 still plans it)."""
+    for P1, P2 in ((512, 256), (256, 512)):
+        assert rk4_route(plan_lib, 3200, False, P1=P1, P2=P2) is None
+        p = rk4_route(plan_lib, 3200, True, P1=P1, P2=P2)
+        assert p is not None and p["wgmma"] == 0
+
+
 def test_rk4_plan_refuses(plan_lib):
     assert rk4_plan(plan_lib, 100, True, D=17) is None  # the last product holds 16 columns
     assert rk4_plan(plan_lib, 0, True) is None
@@ -161,6 +239,8 @@ def test_rk4_plan_refuses(plan_lib):
     assert rk4_plan(plan_lib, 100, False, H1=700) is None
     assert rk4_plan(plan_lib, 100, True, P1=128) is None
     assert rk4_plan(plan_lib, 100, True, P2=320) is None
+    assert rk4_route(plan_lib, 100, False, D=17) is None
+    assert rk4_route(plan_lib, 100, False, H1=700) is None
 
 
 CFG = PointNet2Config()
