@@ -550,6 +550,20 @@ def main():
     from genpose2_tpu_torch.training.agent import PoseAgent, ScaleAgent, calc_likelihood
     from genpose2_tpu_torch.training.optim import global_norm
 
+    def plain_run(fn, *a, **k):
+        """fn(*a, **k) with every op's plain version (ops/_cuda.py:plain_versions)."""
+        with _cuda.plain_versions():
+            return fn(*a, **k)
+
+    def recording(op, recorded):
+        """op, each output appended to recorded["kernel"] where it launched
+        its kernel and to recorded["plain"] where it ran its plain version."""
+        def run(*a):
+            out = op(*a)
+            recorded["kernel" if _cuda.launches(a[0]) else "plain"].append(out)
+            return out
+        return run
+
     # module initialisation draws from torch's global generators, which are
     # otherwise seeded anew in every process
     torch.manual_seed(SEED)
@@ -684,7 +698,7 @@ def main():
         stats = {}
 
         def both(agent, b, **kw):
-            return agent.sample_candidates(b, repeat_num=8, plain=True, **kw)
+            return plain_run(agent.sample_candidates, b, repeat_num=8, **kw)
 
         p_cpu = both(cpu, batch, T0=T0, prior=prior, stats=stats)
         spread = max(max_err(both(cpu, batch, T0=T0, prior=prior * (1 + d)), p_cpu)
@@ -1078,7 +1092,7 @@ def main():
             line["sa"][dtype] = {"max_abs_err": errs, "err_over_max": rel,
                                  "real_rows": [st[5] for st in stages]}
             # RK4 at the main path's shape: 3200 rows, 50 steps
-            feat, _ = s.extract_features({"pts": pts0}, plain=True)
+            feat, _ = plain_run(s.extract_features, {"pts": pts0})
             w = fast_score_weights(s.model.pose_score_net, feat.repeat_interleave(K, 0))
             x0 = s.sde.prior_sample((B * K, 9), T=T0, generator=gen).to(dev)
             xk = fused_rk4_integrate(x0, w, s.sde, T0, STEPS, dtype)
@@ -1445,10 +1459,10 @@ def main():
                      (feats[0], poses, en, R, agg["translation"], lengths))
         shapes = [tuple(feats[0].shape), tuple(poses.shape), tuple(en.shape),
                   tuple(lengths.shape)]
-        f_plain, r_plain = s.extract_features(s.with_image_features(raw, plain=True),
-                                              plain=True)
-        p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, method="fixed", num_steps=STEPS,
-                                      plain=True, features=feats, prior=prior)
+        with _cuda.plain_versions():
+            f_plain, r_plain = s.extract_features(raw)
+            p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, method="fixed",
+                                          num_steps=STEPS, features=feats, prior=prior)
         f_err = rel_err(feats[0], f_plain)
         if r_plain is not None:  # the global rgb feature: the feature's bound
             f_err = max(f_err, rel_err(feats[1], r_plain))
@@ -1485,8 +1499,8 @@ def main():
             x = torch.randn(B, n_valid, vit_dim, generator=gen).to(dev, compute_dtype_of(dtype))
             sn, cs = (t.repeat(1, vit_heads) for t in flagship_tables(n_valid))
             (y, pend), ms, counts = counted(
-                lambda: vit.blocks[0](x, sn, cs, n_valid, vit.dtype, False))
-            y_plain, _ = vit.blocks[0](x, sn, cs, n_valid, vit.dtype, True)
+                lambda: vit.blocks[0](x, sn, cs, n_valid, vit.dtype))
+            y_plain, _ = plain_run(vit.blocks[0], x, sn, cs, n_valid, vit.dtype)
             want = dict.fromkeys(_cuda.KERNELS, 0)
             want.update(vit_attention_unpadded=1, add_layernorm=int(dtype == "bfloat16"))
             # one block: f32 summation order; bf16 a flipped rounding of the stream
@@ -1599,25 +1613,15 @@ def main():
         # one step with the kernels against the same step with the plain
         # versions, same state and generator seed; every ball query's indices
         recorded = {"kernel": [], "plain": []}
-
-        def recording(fn, key):
-            def run(*a):
-                out = fn(*a)
-                recorded[key].append(out)
-                return out
-            return run
-
-        pointnet2_module.ball_query = recording(ball_query, "kernel")
-        pointnet2_module.ball_query_plain = recording(ball_query_plain, "plain")
+        pointnet2_module.ball_query = recording(ball_query, recorded)
         try:
             # loss_and_grads changes neither the model nor the state
             l_k, _, g_k, _ = agent.loss_and_grads(state, batch,
                                                   torch.Generator(dev).manual_seed(7))
-            l_p, _, g_p, _ = agent.loss_and_grads(state, batch,
-                                                  torch.Generator(dev).manual_seed(7), plain=True)
+            l_p, _, g_p, _ = plain_run(agent.loss_and_grads, state, batch,
+                                       torch.Generator(dev).manual_seed(7))
         finally:
             pointnet2_module.ball_query = ball_query
-            pointnet2_module.ball_query_plain = ball_query_plain
         ks = [g for g in g_k.values() if g is not None]
         ps = [g for g in g_p.values() if g is not None]
         gmax = max(float(g.abs().max()) for g in ps)
@@ -1767,13 +1771,12 @@ def main():
                     again = engine.front_end(seq[i])
                     same_host = all(np.array_equal(raw[k], again[k])
                                     for k in ("pcl_in", "roi_rgb", "roi_xs", "roi_ys"))
-                    plain = engine.serve_batch(raw, None, False, prior=prior, energy_t=et,
-                                               plain=True)
-                    p_plain = engine.score_agent.sample_candidates(
-                        out["batch"], repeat_num=Kf, T0=T0f, method="fixed",
-                        num_steps=engine.num_steps,
-                        features=(out["features"], out["rgb_features"]), prior=prior,
-                        plain=True)
+                    with _cuda.plain_versions():
+                        plain = engine.serve_batch(raw, None, False, prior=prior, energy_t=et)
+                        p_plain = engine.score_agent.sample_candidates(
+                            out["batch"], repeat_num=Kf, T0=T0f, method="fixed",
+                            num_steps=engine.num_steps,
+                            features=(out["features"], out["rgb_features"]), prior=prior)
                     f_err = rel_err(out["features"], plain["features"])
                     if plain["rgb_features"] is not None:
                         f_err = max(f_err, rel_err(out["rgb_features"], plain["rgb_features"]))
@@ -1979,14 +1982,14 @@ def main():
         runs["cached"] = counted(lambda: evaluator("run").run(batches))
         runs["stream"] = counted(lambda: evaluator("stream").run_streaming(batches,
                                                                           priors=priors))
-        runs["plain_stream"] = counted(lambda: evaluator("plain_stream").run_streaming(
-            batches, priors=priors, plain=True))
-        runs["plain_run"] = counted(lambda: evaluator("plain_run").run(batches, priors=priors,
-                                                                       plain=True))
+        runs["plain_stream"] = counted(lambda: plain_run(evaluator("plain_stream").run_streaming,
+                                                         batches, priors=priors))
+        runs["plain_run"] = counted(lambda: plain_run(evaluator("plain_run").run, batches,
+                                                      priors=priors))
         seeded(d["run"], d["plain_energy"], ["pred_pose.npz"])
-        runs["plain_energy"] = counted(lambda: evaluator("plain_energy").run(batches, plain=True))
+        runs["plain_energy"] = counted(lambda: plain_run(evaluator("plain_energy").run, batches))
         seeded(d["run"], d["plain_tail"], ["pred_pose.npz", "pred_energy.npz"])
-        runs["plain_tail"] = counted(lambda: evaluator("plain_tail").run(batches, plain=True))
+        runs["plain_tail"] = counted(lambda: plain_run(evaluator("plain_tail").run, batches))
         none = dict.fromkeys(_cuda.KERNELS, 0)
         want = {"run": times(eval_counts(dtype, 3), count),
                 "cached": times(eval_counts(dtype, 0, rk4=0), count),
@@ -2006,11 +2009,12 @@ def main():
         for i, (batch, cand) in enumerate(zip(batches, stage("run", "pred_pose.npz"))):
             bk = s.with_image_features(batch)
             fk = s.extract_features(bk)
-            fp = s.extract_features(s.with_image_features(batch, plain=True), plain=True)
-            cp = s.sample_candidates(bk, repeat_num=s.cfg.eval.eval_repeat_num,
-                                     T0=s.cfg.eval.T0, method="fixed",
-                                     num_steps=s.cfg.sampler.sampling_steps,
-                                     features=fk, prior=priors[i], plain=True)
+            with _cuda.plain_versions():
+                fp = s.extract_features(batch)
+                cp = s.sample_candidates(bk, repeat_num=s.cfg.eval.eval_repeat_num,
+                                         T0=s.cfg.eval.T0, method="fixed",
+                                         num_steps=s.cfg.sampler.sampling_steps,
+                                         features=fk, prior=priors[i])
             f_err = max(f_err, rel_err(fk[0], fp[0]))
             c_err = max(c_err, float(np.abs(cand - cp.cpu().numpy()).max()))
         err = {"feature_over_max": f_err, "candidates": c_err,
@@ -2355,7 +2359,9 @@ def main():
             emit(dict(line, ok=good, part=f"rk45_call_{dtype}"))
             # the score and energy encoders' features against plain: the
             # request phase's flagship bounds (of max |plain|)
-            feats = [a.extract_features(batch, plain=p)[0] for a in (s, e) for p in (False, True)]
+            feats = []
+            for a in (s, e):
+                feats += [a.extract_features(batch)[0], plain_run(a.extract_features, batch)[0]]
             f_err = [rel_err(feats[0], feats[1]), rel_err(feats[2], feats[3])]
             f_tol = 2e-4 if dtype == "float32" else 5e-2
             good = max(f_err) <= f_tol
@@ -2366,8 +2372,9 @@ def main():
             def sampling(agent, **kw):
                 def run(start, plain):
                     g = torch.Generator(device=dev).manual_seed(SEED + 16)
-                    return agent.sample_candidates(batch, repeat_num=K, prior=start, plain=plain,
-                                                   generator=g, **kw)
+                    with _cuda.plain_versions() if plain else contextlib.nullcontext():
+                        return agent.sample_candidates(batch, repeat_num=K, prior=start,
+                                                       generator=g, **kw)
                 return run
 
             def rk45_evals(agent):
@@ -2400,7 +2407,7 @@ def main():
         ll = calc_likelihood(s, batch, poses_bf16, epsilon=eps, stats=lstats)
         torch.cuda.synchronize()
         lms = 1e3 * (time.perf_counter() - t0)
-        ll_plain = calc_likelihood(s, batch, poses_bf16, epsilon=eps, plain=True)
+        ll_plain = plain_run(calc_likelihood, s, batch, poses_bf16, epsilon=eps)
         lerr = rel_err(ll, ll_plain)
         # bits over max |bits|: the bf16 features' rounding (up to ~7e-3 of max,
         # the request phase) carried through the integration; the relative
@@ -2539,25 +2546,14 @@ def main():
             batch = agent.with_image_features(
                 trainer._prepare(first, torch.Generator(dev).manual_seed(5)))
             recorded = {"kernel": [], "plain": []}
-
-            def recording(fn, key):
-                def run(*a):
-                    out = fn(*a)
-                    recorded[key].append(out)
-                    return out
-                return run
-
-            pointnet2_module.ball_query = recording(ball_query, "kernel")
-            pointnet2_module.ball_query_plain = recording(ball_query_plain, "plain")
+            pointnet2_module.ball_query = recording(ball_query, recorded)
             try:
                 l_k, _, g_k, _ = agent.loss_and_grads(state, batch,
                                                       torch.Generator(dev).manual_seed(7))
-                l_p, _, g_p, _ = agent.loss_and_grads(state, batch,
-                                                      torch.Generator(dev).manual_seed(7),
-                                                      plain=True)
+                l_p, _, g_p, _ = plain_run(agent.loss_and_grads, state, batch,
+                                           torch.Generator(dev).manual_seed(7))
             finally:
                 pointnet2_module.ball_query = ball_query
-                pointnet2_module.ball_query_plain = ball_query_plain
             ks = [g for g in g_k.values() if g is not None]
             ps = [g for g in g_p.values() if g is not None]
             gmax = max(float(g.abs().max()) for g in ps)
@@ -2787,9 +2783,10 @@ def main():
                      (feats[0], poses, en, R, agg["translation"], lengths))
         shapes = [tuple(feats[0].shape), tuple(poses.shape), tuple(en.shape),
                   tuple(lengths.shape)]
-        f_plain, _ = s.extract_features(s.with_image_features(raw, plain=True), plain=True)
-        p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, method="fixed", num_steps=STEPS,
-                                      plain=True, features=feats, prior=prior)
+        with _cuda.plain_versions():
+            f_plain, _ = s.extract_features(raw)
+            p_plain = s.sample_candidates(raw, repeat_num=K, T0=T0, method="fixed",
+                                          num_steps=STEPS, features=feats, prior=prior)
         f_err, p_err = rel_err(feats[0], f_plain), max_err(poses, p_plain)
         # the request phase's bounds (dino='none' for the PointNet encoders)
         flag = m.dino == "pointwise"
@@ -2823,32 +2820,22 @@ def main():
         pts = object_clouds(mgen, dev, B, N)
         recorded = {"kernel": [], "plain": []}
 
-        def recording(fn, key):
-            def run(*a):
-                out = fn(*a)
-                recorded[key].append(out)
-                return out
-            return run
-
-        def train_pass(plain):
+        def train_pass():
             with torch.enable_grad():
-                out = seg(pts, True, torch.Generator(dev).manual_seed(SEED + 3), plain)
+                out = seg(pts, True, torch.Generator(dev).manual_seed(SEED + 3))
                 out.sum().backward()
             grads = [p.grad.clone() for p in seg.parameters()]
             seg.zero_grad(set_to_none=True)
             return out.detach(), grads
 
-        saved = {n: getattr(pointnet2_module, n) for n in
-                 ("furthest_point_sample", "fps_plain", "ball_query", "ball_query_plain")}
-        pointnet2_module.furthest_point_sample = recording(furthest_point_sample, "kernel")
-        pointnet2_module.fps_plain = recording(fps_plain, "plain")
-        pointnet2_module.ball_query = recording(ball_query, "kernel")
-        pointnet2_module.ball_query_plain = recording(ball_query_plain, "plain")
+        saved = {n: getattr(pointnet2_module, n) for n in ("furthest_point_sample", "ball_query")}
+        pointnet2_module.furthest_point_sample = recording(furthest_point_sample, recorded)
+        pointnet2_module.ball_query = recording(ball_query, recorded)
         try:
             out_e, ms_e, c_e = counted(lambda: seg(pts, False))
-            plain_e = seg(pts, False, plain=True)
-            (out_t, g_t), ms_t, c_t = counted(lambda: train_pass(False))
-            plain_t, g_p = train_pass(True)
+            plain_e = plain_run(seg, pts, False)
+            (out_t, g_t), ms_t, c_t = counted(train_pass)
+            plain_t, g_p = plain_run(train_pass)
         finally:
             for n, f in saved.items():
                 setattr(pointnet2_module, n, f)
@@ -2932,8 +2919,8 @@ def main():
         batch = agent.with_image_features(batch_of())
         l_k, _, g_k, _ = agent.loss_and_grads(state, batch, torch.Generator(dev).manual_seed(7),
                                               teacher=teacher)
-        l_p, _, g_p, _ = agent.loss_and_grads(state, batch, torch.Generator(dev).manual_seed(7),
-                                              plain=True, teacher=teacher)
+        l_p, _, g_p, _ = plain_run(agent.loss_and_grads, state, batch,
+                                   torch.Generator(dev).manual_seed(7), teacher=teacher)
         ks = [g for g in g_k.values() if g is not None]
         ps = [g for g in g_p.values() if g is not None]
         l_k, l_p = float(l_k.detach()), float(l_p.detach())

@@ -131,15 +131,14 @@ class GenPose2:
     def serve_batch(self, raw: dict, prev_pose: Optional[torch.Tensor] = None,
                     tracking: bool = False, generator: Optional[torch.Generator] = None,
                     prior: Optional[torch.Tensor] = None,
-                    energy_t: Optional[torch.Tensor] = None, plain: bool = False) -> dict:
+                    energy_t: Optional[torch.Tensor] = None) -> dict:
         """The device part of a call on the front end's batch. Returns
         ``batch`` (on the device), ``features`` (the score encoder's),
         ``rgb_features`` (dino='global': the global rgb feature, else None),
         ``candidates`` (n, K, D), ``energy``, ``aggregate`` and ``lengths``.
         Randomness: the sampler's prior (n * K, D) and the detection-mode
         energy times (n * K, 1) come from ``generator`` (seed 0 when None)
-        unless ``prior`` / ``energy_t`` give them. ``plain`` runs the plain
-        versions of every kernel."""
+        unless ``prior`` / ``energy_t`` give them."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         with span("collate"):
@@ -155,16 +154,15 @@ class GenPose2:
         else:
             T0, init_x = self.single_T0, None
         s = self.score_agent
-        batch = s.with_image_features(batch, plain)
-        feats = s.extract_features(batch, plain)
+        batch = s.with_image_features(batch)
+        feats = s.extract_features(batch)
         poses = s.sample_candidates(batch, repeat_num=self.cfg.eval.eval_repeat_num, T0=T0,
                                     init_x=init_x, method="fixed", num_steps=self.num_steps,
-                                    features=feats, generator=generator, prior=prior,
-                                    plain=plain)
+                                    features=feats, generator=generator, prior=prior)
         energy = None
         if self.energy_agent is not None:
             energy = self.energy_agent.get_energy(batch, poses, fixed_t=None,
-                                                  generator=generator, t=energy_t, plain=plain)
+                                                  generator=generator, t=energy_t)
         ev = self.cfg.eval
         agg = aggregate_candidates(poses, energy, retain_ratio=ev.retain_ratio,
                                    clustering=ev.clustering, eps=ev.clustering_eps,

@@ -84,18 +84,18 @@ class SingleFrameEvaluator:
     def _path(self, name):
         return os.path.join(self.out_dir, name) if self.out_dir else None
 
-    def _sample(self, batch, generator, prior, features=None, plain=False):
+    def _sample(self, batch, generator, prior, features=None):
         ev = self.cfg.eval
         return self.score_agent.sample_candidates(
             batch, repeat_num=ev.eval_repeat_num, T0=ev.T0, method=self.method,
             num_steps=self.cfg.sampler.sampling_steps, features=features, generator=generator,
-            prior=prior, plain=plain, state=self.score_state)
+            prior=prior, state=self.score_state)
 
-    def _energy(self, batch, poses, features=None, plain=False):
+    def _energy(self, batch, poses, features=None):
         if self.energy_agent is None:
             return None
         return self.energy_agent.get_energy(batch, poses, fixed_t=1e-5, features=features,
-                                            plain=plain, state=self.energy_state)
+                                            state=self.energy_state)
 
     def _aggregate(self, poses, energy):
         ev = self.cfg.eval
@@ -118,19 +118,18 @@ class SingleFrameEvaluator:
 
     # ------------------------------------------------------------- stages
     def inference_score(self, batches: List[dict], generator=None,
-                        priors: Optional[Sequence[torch.Tensor]] = None,
-                        plain: bool = False) -> List[np.ndarray]:
+                        priors: Optional[Sequence[torch.Tensor]] = None) -> List[np.ndarray]:
         """Candidate poses (B, K, D), camera frame, one array per batch."""
         path = self._path("pred_pose.npz")
         if _stage(path):
             return _load_list(path)
-        out = [_host(self._sample(b, generator, _prior(priors, i), plain=plain))
+        out = [_host(self._sample(b, generator, _prior(priors, i)))
                for i, b in enumerate(batches)]
         if path:
             _save_list(path, out)
         return out
 
-    def inference_energy(self, batches, all_poses, plain: bool = False) -> List[np.ndarray]:
+    def inference_energy(self, batches, all_poses) -> List[np.ndarray]:
         """Energies (B, K, 2) of the candidates at t = 1e-5; ones without an
         energy agent."""
         path = self._path("pred_energy.npz")
@@ -139,7 +138,7 @@ class SingleFrameEvaluator:
         if self.energy_agent is None:
             return [np.ones((p.shape[0], p.shape[1], 2), np.float32) for p in all_poses]
         dev = self.energy_agent.device
-        out = [_host(self._energy(b, torch.as_tensor(p, device=dev), plain=plain))
+        out = [_host(self._energy(b, torch.as_tensor(p, device=dev)))
                for b, p in zip(batches, all_poses)]
         if path:
             _save_list(path, out)
@@ -163,20 +162,16 @@ class SingleFrameEvaluator:
             _save_list(trans_path, transs)
         return rots, transs
 
-    def inference_scale(self, batches, rots, transs, plain: bool = False) -> List[np.ndarray]:
+    def inference_scale(self, batches, rots, transs) -> List[np.ndarray]:
         """Box side lengths (B, 3), at least 1 mm. ``scale_fn`` gets no
-        feature here: it runs the score encoder itself (with ``plain``, the
-        score agent's plain feature is handed to it)."""
+        feature here: it runs the score encoder itself."""
         path = self._path("lengths.npz")
         if _stage(path):
             return _load_list(path)
         dev = self.score_agent.device
-        out = []
-        for b, R, t in zip(batches, rots, transs):
-            feat = (self.score_agent.extract_features(b, True, state=self.score_state)[0]
-                    if plain and self.scale_fn is not None else None)
-            out.append(_host(self._lengths(b, torch.as_tensor(R, device=dev),
-                                           torch.as_tensor(t, device=dev), feat)))
+        out = [_host(self._lengths(b, torch.as_tensor(R, device=dev),
+                                   torch.as_tensor(t, device=dev)))
+               for b, R, t in zip(batches, rots, transs)]
         if path:
             _save_list(path, out)
         return out
@@ -202,30 +197,29 @@ class SingleFrameEvaluator:
 
     # ---------------------------------------------------------------- run
     def run(self, batches: Iterable[dict], generator: Optional[torch.Generator] = None,
-            priors: Optional[Sequence[torch.Tensor]] = None, plain: bool = False) -> PoseMetrics:
+            priors: Optional[Sequence[torch.Tensor]] = None) -> PoseMetrics:
         """Every stage over all batches -> PoseMetrics. The frozen backbone's
         features are attached to each batch first, so that no later stage
-        (score, energy, scale) runs the backbone. ``plain`` runs the plain
-        versions of the kernels."""
-        batches = [self.score_agent.with_image_features(b, plain) for b in batches]
-        poses = self.inference_score(batches, generator, priors, plain)
-        energy = self.inference_energy(batches, poses, plain)
+        (score, energy, scale) runs the backbone."""
+        batches = [self.score_agent.with_image_features(b) for b in batches]
+        poses = self.inference_score(batches, generator, priors)
+        energy = self.inference_energy(batches, poses)
         rots, transs = self.aggregate(poses, energy)
-        lengths = self.inference_scale(batches, rots, transs, plain)
+        lengths = self.inference_scale(batches, rots, transs)
         return self.criterion_and_metrics(batches, rots, transs, lengths)
 
     # ---------------------------------------------------------- streaming
     @span("eval.batch", unit=True)
-    def _run_one(self, batch: dict, generator=None, prior=None, plain: bool = False) -> dict:
+    def _run_one(self, batch: dict, generator=None, prior=None) -> dict:
         """Every stage for one batch; per-object results on the host. The
         backbone and the score encoder run once: the image features ride the
         batch into the energy agent, and the score feature feeds both the
         sampler and ``scale_fn``."""
         s = self.score_agent
-        batch = s.with_image_features(batch, plain)
-        feats = s.extract_features(batch, plain, state=self.score_state)
-        poses = self._sample(batch, generator, prior, features=feats, plain=plain)
-        agg = self._aggregate(poses, self._energy(batch, poses, plain=plain))
+        batch = s.with_image_features(batch)
+        feats = s.extract_features(batch, state=self.score_state)
+        poses = self._sample(batch, generator, prior, features=feats)
+        agg = self._aggregate(poses, self._energy(batch, poses))
         R, t = agg["rotation"], agg["translation"]
         lengths = self._lengths(batch, R, t, pts_feat=feats[0])
         with span("criterion"):
@@ -237,19 +231,17 @@ class SingleFrameEvaluator:
         return {k: _host(v) for k, v in out.items()}
 
     def run_streaming(self, batch_iter: Iterable[dict], generator: Optional[torch.Generator] = None,
-                      priors: Optional[Sequence[torch.Tensor]] = None,
-                      plain: bool = False) -> PoseMetrics:
+                      priors: Optional[Sequence[torch.Tensor]] = None) -> PoseMetrics:
         """Every stage per batch of an iterator, keeping only per-object
         results; with ``out_dir`` each batch's results are cached in
-        ``batch_{i:06d}.npz`` and a cached batch is not run again. ``plain``
-        runs the plain versions of the kernels."""
+        ``batch_{i:06d}.npz`` and a cached batch is not run again."""
         acc = {k: [] for k in ("iou", "deg", "sht", "class_label")}
         for i, batch in enumerate(batch_iter):
             path = self._path(f"batch_{i:06d}.npz")
             if _stage(path):
                 out = dict(np.load(path))
             else:
-                out = self._run_one(batch, generator, _prior(priors, i), plain)
+                out = self._run_one(batch, generator, _prior(priors, i))
                 if path:
                     np.savez(path, **out)
             for k in acc:

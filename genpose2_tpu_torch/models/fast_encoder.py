@@ -19,9 +19,6 @@ genpose2_tpu/models/fast_encoder.py:fast_cls_forward and fast_fus_forward).
   block after every stage: the grouped stages' through the rel-PE attention
   and residual-LayerNorm kernels (``_relpe_block``), the GroupAll stage's as
   the plain float32 module.
-
-``plain=True`` runs the plain versions of the kernels on any device; it is
-there to hold the kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -35,15 +32,13 @@ from genpose2_tpu_torch.models.attention import (GatedAttentionFusion,
 from genpose2_tpu_torch.models.layers import fold_bn, linear_resize_points, mm
 from genpose2_tpu_torch.models.pointnet2 import (PointNet2ClsMSG, PointNet2ClsMSGFus,
                                                  SetAbstractionMSG, _inputs)
-from genpose2_tpu_torch.ops.ball_query import ball_count, ball_count_plain
-from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
-from genpose2_tpu_torch.ops.fused_sa import (fused_sa_scale, fused_sa_scale_plain, fused_sa_stage,
-                                             fused_sa_stage_plain, stage_route)
+from genpose2_tpu_torch.ops.ball_query import ball_count
+from genpose2_tpu_torch.ops.fps import furthest_point_sample
+from genpose2_tpu_torch.ops.fused_sa import fused_sa_scale, fused_sa_stage, stage_route
 from genpose2_tpu_torch.ops.grouping import gather_points
-from genpose2_tpu_torch.ops.layernorm import (fast_residual_layernorm,
-                                              fast_residual_layernorm_plain)
+from genpose2_tpu_torch.ops.layernorm import fast_residual_layernorm
 from genpose2_tpu_torch.ops.ode_rk4 import compute_dtype_of
-from genpose2_tpu_torch.ops.relpe_attention import relpe_attention, relpe_attention_plain
+from genpose2_tpu_torch.ops.relpe_attention import relpe_attention
 
 
 def stage_arguments(sa: SetAbstractionMSG, inp: torch.Tensor, nxs: torch.Tensor,
@@ -69,7 +64,7 @@ def stage_arguments(sa: SetAbstractionMSG, inp: torch.Tensor, nxs: torch.Tensor,
 
 
 def _fast_sa_stage(sa: SetAbstractionMSG, xyz, features, cfg: PointNet2Config, dt,
-                   new_xyz, plain: bool):
+                   new_xyz):
     if sa.npoint is None:
         grouped = _inputs(xyz, features, cfg.use_xyz)
         outs = []
@@ -82,14 +77,14 @@ def _fast_sa_stage(sa: SetAbstractionMSG, xyz, features, cfg: PointNet2Config, d
         return None, torch.cat(outs, dim=-1)
 
     if new_xyz is None:
-        idx = (fps_plain if plain else furthest_point_sample)(xyz, sa.npoint)
+        idx = furthest_point_sample(xyz, sa.npoint)
         new_xyz = gather_points(xyz, idx)
     inp = _inputs(xyz, features, cfg.use_xyz)
 
     use_skip = xyz.shape[1] >= 1024
     if use_skip:
         radius = max(r for r in sa.radii if r is not None)
-        cnt = (ball_count_plain if plain else ball_count)(xyz, new_xyz, radius)
+        cnt = ball_count(xyz, new_xyz, radius)
         order = torch.argsort(-cnt, dim=1, stable=True)
         inv_order = torch.argsort(order, dim=1)
         nxs = gather_points(new_xyz, order)
@@ -103,24 +98,23 @@ def _fast_sa_stage(sa: SetAbstractionMSG, xyz, features, cfg: PointNet2Config, d
     route = stage_route(xyz.shape[1], nxs.shape[1], projs, affines_list, weights_list,
                         sa.nsamples, 4 if use_skip else 8)
     if route == "stage":
-        run = fused_sa_stage_plain if plain else fused_sa_stage
-        cat = run(xyz, nxs, *args, sa.radii, sa.nsamples)
+        cat = fused_sa_stage(xyz, nxs, *args, sa.radii, sa.nsamples)
     else:  # scale outputs concatenated in scale order
-        run = fused_sa_scale_plain if plain else fused_sa_scale
-        cat = torch.cat([run(xyz, nxs, projs[s], centers[s], affines_list[s], weights_list[s],
-                             sa.radii[s], sa.nsamples[s]) for s in range(len(sa.radii))], dim=-1)
+        cat = torch.cat([fused_sa_scale(xyz, nxs, projs[s], centers[s], affines_list[s],
+                                        weights_list[s], sa.radii[s], sa.nsamples[s])
+                         for s in range(len(sa.radii))], dim=-1)
     if use_skip:
         cat = gather_points(cat, inv_order)
     return new_xyz, cat
 
 
-def _fps_prefix_centroids(xyz, cfg: PointNet2Config, plain: bool):
+def _fps_prefix_centroids(xyz, cfg: PointNet2Config):
     """The pick-ordered centroids of one stage-0 FPS run, whose prefixes are
     every later stage's centroids; None when npoints is not a shrinking chain."""
     ns = [n for n in cfg.npoints if n is not None]
     if not ns or any(b > a for a, b in zip(ns, ns[1:])):
         return None
-    idx = (fps_plain if plain else furthest_point_sample)(xyz, ns[0])
+    idx = furthest_point_sample(xyz, ns[0])
     return gather_points(xyz, idx)
 
 
@@ -172,23 +166,22 @@ def _linear(x: torch.Tensor, lin: torch.nn.Linear, dt: torch.dtype) -> torch.Ten
 
 
 def _relpe_block(tb: TransformerBlockWithRelativePE, pe, xyz, features, cfg: PointNet2Config,
-                 dt, plain: bool):
+                 dt):
     """One grouped stage's post-norm rel-PE block through the attention and
     residual-LayerNorm kernels; products in the compute dtype, residuals,
     biases and LayerNorm statistics float32."""
     att = tb.self_attn
     q, k, v = (_linear(features, lin, dt) for lin in (att.wq, att.wk, att.wv))
-    run = relpe_attention_plain if plain else relpe_attention
-    attn = _linear(run(xyz, q, k, v, pe, cfg.num_heads, cfg.compute_dtype), att.wo, dt)
-    rln = fast_residual_layernorm_plain if plain else fast_residual_layernorm
-    h = rln(features, attn, tb.norm1.weight, tb.norm1.bias)
+    attn = _linear(relpe_attention(xyz, q, k, v, pe, cfg.num_heads, cfg.compute_dtype),
+                   att.wo, dt)
+    h = fast_residual_layernorm(features, attn, tb.norm1.weight, tb.norm1.bias)
     ff = _linear(torch.relu(_linear(h, tb.linear1, dt)), tb.linear2, dt)
-    return rln(h, ff, tb.norm2.weight, tb.norm2.bias)
+    return fast_residual_layernorm(h, ff, tb.norm2.weight, tb.norm2.bias)
 
 
 @torch.no_grad()
 def fast_fus_forward(encoder: PointNet2ClsMSGFus, pointcloud: torch.Tensor,
-                     cfg: PointNet2Config, plain: bool = False) -> torch.Tensor:
+                     cfg: PointNet2Config) -> torch.Tensor:
     """Eval fast path of the Fus encoder (port of fast_encoder.py:fast_fus_forward):
     pointcloud (B, N, 3 + dino_dim) -> (B, C_final) float32. Stage k > 0 first
     fuses the stage input with the DINO features resized to its point count;
@@ -197,17 +190,17 @@ def fast_fus_forward(encoder: PointNet2ClsMSGFus, pointcloud: torch.Tensor,
     xyz = pointcloud[..., :3].float().contiguous()
     features = pointcloud[..., 3:].float()
     downsampled = features
-    S = _fps_prefix_centroids(xyz, cfg, plain)
+    S = _fps_prefix_centroids(xyz, cfg)
     for k, sa in enumerate(encoder.SA_modules):
         if k > 0:
             downsampled = linear_resize_points(downsampled, features.shape[1])
             features = _fast_gaf(encoder.feature_fusions[k - 1], features, downsampled, dt)
         new_xyz = None if (S is None or sa.npoint is None) else S[:, : sa.npoint]
-        new_xyz, features = _fast_sa_stage(sa, xyz, features, cfg, dt, new_xyz, plain)
+        new_xyz, features = _fast_sa_stage(sa, xyz, features, cfg, dt, new_xyz)
         tb = encoder.transformer_blocks[k]
         if new_xyz is not None:
             features = _relpe_block(tb, encoder.relative_pos_encoders[str(k)], new_xyz,
-                                    features, cfg, dt, plain)
+                                    features, cfg, dt)
         else:
             features = tb(features.float())
         xyz = new_xyz
@@ -216,13 +209,13 @@ def fast_fus_forward(encoder: PointNet2ClsMSGFus, pointcloud: torch.Tensor,
 
 @torch.no_grad()
 def fast_cls_forward(encoder: PointNet2ClsMSG, pointcloud: torch.Tensor,
-                     cfg: PointNet2Config, plain: bool = False) -> torch.Tensor:
+                     cfg: PointNet2Config) -> torch.Tensor:
     """pointcloud (B, N, 3 + C) -> (B, C_final) float32."""
     dt = compute_dtype_of(cfg.compute_dtype)
     xyz = pointcloud[..., :3].float().contiguous()
     features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
-    S = _fps_prefix_centroids(xyz, cfg, plain)
+    S = _fps_prefix_centroids(xyz, cfg)
     for sa in encoder.SA_modules:
         new_xyz = None if (S is None or sa.npoint is None) else S[:, : sa.npoint]
-        xyz, features = _fast_sa_stage(sa, xyz, features, cfg, dt, new_xyz, plain)
+        xyz, features = _fast_sa_stage(sa, xyz, features, cfg, dt, new_xyz)
     return features.squeeze(1)

@@ -27,8 +27,8 @@ from genpose2_tpu_torch.models.attention import (EfficientRelativePositionalEnco
                                                  TransformerBlockWithRelativePE)
 from genpose2_tpu_torch.models.layers import (SharedMLP, batch_norm, dropout,
                                               linear_resize_points)
-from genpose2_tpu_torch.ops.ball_query import ball_query, ball_query_plain
-from genpose2_tpu_torch.ops.fps import fps_plain, furthest_point_sample
+from genpose2_tpu_torch.ops.ball_query import ball_query
+from genpose2_tpu_torch.ops.fps import furthest_point_sample
 from genpose2_tpu_torch.ops.grouping import gather_points, group_points
 from genpose2_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from genpose2_tpu_torch.ops.ode_rk4 import compute_dtype_of
@@ -52,7 +52,7 @@ class SetAbstractionMSG(nn.Module):
         self.out_channels = sum(w[-1] for w in mlps)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], train: bool,
-                dtype: torch.dtype = torch.float32, plain: bool = False):
+                dtype: torch.dtype = torch.float32):
         """(xyz (B, N, 3), features (B, N, C) | None) -> (new_xyz (B, npoint, 3)
         | None, (B, npoint | 1, sum C_out) float32).
 
@@ -61,21 +61,20 @@ class SetAbstractionMSG(nn.Module):
         every setting), gathers the projections of each centroid's ball and
         subtracts the centroid's own (``center @ W[:3]``), then float32 BN +
         ReLU, the rest of the SharedMLP in ``dtype`` and a max over slots
-        (``amax``: ties share the gradient, as JAX's max does). ``plain``
-        runs the plain versions of the FPS and ball-query kernels."""
+        (``amax``: ties share the gradient, as JAX's max does)."""
         if self.npoint is None:  # GroupAll: one centroid over every point, float32
             grouped = _inputs(xyz, features, self.use_xyz)
             return None, torch.cat([mlp(grouped, train).amax(dim=1, keepdim=True)
                                     for mlp in self.mlps], dim=-1)
         xyz = xyz.float().contiguous()
-        idx = (fps_plain if plain else furthest_point_sample)(xyz, self.npoint)
+        idx = furthest_point_sample(xyz, self.npoint)
         new_xyz = gather_points(xyz, idx)
         inp = _inputs(xyz, features, self.use_xyz)
         outs = []
         for mlp, radius, nsample in zip(self.mlps, self.radii, self.nsamples):
             lay0 = mlp.layer0
             kernel = lay0.conv.weight[:, :, 0, 0].t()  # (3 + C, h1)
-            g_idx = (ball_query_plain if plain else ball_query)(xyz, new_xyz, radius, nsample)
+            g_idx = ball_query(xyz, new_xyz, radius, nsample)
             grouped = group_points(inp.float() @ kernel, g_idx)  # (B, npoint, S, h1)
             if self.use_xyz:
                 grouped = grouped - (new_xyz @ kernel[:3])[:, :, None, :]
@@ -100,13 +99,13 @@ class PointNet2ClsMSG(nn.Module):
         self.out_channels = in_channels
 
     def forward(self, pointcloud: torch.Tensor, train: bool,
-                generator: Optional[torch.Generator] = None, plain: bool = False):
+                generator: Optional[torch.Generator] = None):
         """pointcloud (B, N, 3 + C) -> (B, C_final) float32."""
         dt = compute_dtype_of(self.cfg.compute_dtype)
         xyz = pointcloud[..., :3]
         features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
         for sa in self.SA_modules:
-            xyz, features = sa(xyz, features, train, dt, plain)
+            xyz, features = sa(xyz, features, train, dt)
         return features.squeeze(1)
 
 
@@ -133,7 +132,7 @@ class PointNet2ClsMSGFus(PointNet2ClsMSG):
             GatedAttentionFusion(w, dino_dim) for w in widths[:-1])
 
     def forward(self, pointcloud: torch.Tensor, train: bool,
-                generator: Optional[torch.Generator] = None, plain: bool = False):
+                generator: Optional[torch.Generator] = None):
         """pointcloud (B, N, 3 + dino_dim) -> (B, C_final) float32. In train
         mode the whole input (DINO channels too) gets N(0, 1) * input_jitter
         noise and each gated fusion's output dropout, both from
@@ -153,7 +152,7 @@ class PointNet2ClsMSGFus(PointNet2ClsMSG):
                     downsampled = linear_resize_points(downsampled, features.shape[1])
                 features = self.feature_fusions[k - 1](features, downsampled, train, dt)
                 features = dropout(features, cfg.dropout, generator, train)
-            new_xyz, features = sa(xyz, features, train, dt, plain)
+            new_xyz, features = sa(xyz, features, train, dt)
             bias = None if new_xyz is None else self.relative_pos_encoders[str(k)](new_xyz)
             features = self.transformer_blocks[k](features, bias, train, cfg.dropout, generator)
             xyz = new_xyz
@@ -229,16 +228,15 @@ class PointNet2SegMSG(nn.Module):
         self.cls_out = nn.Linear(coarse, 1)
 
     def forward(self, pointcloud: torch.Tensor, train: bool,
-                generator: Optional[torch.Generator] = None, plain: bool = False):
+                generator: Optional[torch.Generator] = None):
         """pointcloud (B, N, 3 + C) -> per-point logits (B, N, 1) float32. The
         SA stages run in cfg.compute_dtype, the rest in float32; in train mode
-        the tail's dropout draws from ``generator``. ``plain`` runs the plain
-        versions of the FPS and ball-query kernels."""
+        the tail's dropout draws from ``generator``."""
         dt = compute_dtype_of(self.cfg.compute_dtype)
         l_xyz = [pointcloud[..., :3].float()]
         l_feats = [pointcloud[..., 3:].float() if pointcloud.shape[-1] > 3 else None]
         for sa in self.SA_modules:
-            new_xyz, feats = sa(l_xyz[-1], l_feats[-1], train, dt, plain)
+            new_xyz, feats = sa(l_xyz[-1], l_feats[-1], train, dt)
             l_xyz.append(new_xyz)
             l_feats.append(feats)
         for i in range(len(self.FP_modules), 0, -1):

@@ -104,8 +104,7 @@ class GFObjectPose(nn.Module):
         return torch.gather(fused_patches, 1,
                             pos[..., None].expand(-1, -1, fused_patches.shape[-1]))
 
-    def extract_pts_feature(self, pts, plain: bool = False,
-                            dino_layers: Optional[Sequence[torch.Tensor]] = None,
+    def extract_pts_feature(self, pts, dino_layers: Optional[Sequence[torch.Tensor]] = None,
                             roi_xs=None, roi_ys=None, train: bool = False,
                             generator: Optional[torch.Generator] = None):
         """pts (B, N, 3) (+ the tapped ViT layers and each point's pixel with
@@ -116,8 +115,7 @@ class GFObjectPose(nn.Module):
         ``train``: the encoders' module forwards with autograd, noise and
         dropout drawn from ``generator``; the per-point DINO feature is
         computed without gradients (the JAX package's stop_gradient), so the
-        ImgEncoder gets none. ``plain`` runs the plain versions of the
-        kernels."""
+        ImgEncoder gets none."""
         if self.cfg.dino == "pointwise":
             with torch.no_grad():
                 rgb = self.pointwise_rgb_feat(self.fuse_dino_layers(dino_layers), roi_xs, roi_ys)
@@ -125,22 +123,22 @@ class GFObjectPose(nn.Module):
         else:
             inp = pts.float()
         if train:
-            return self._module_forward(inp, True, generator, plain)
+            return self._module_forward(inp, True, generator)
         if self.cfg.dino == "global" or self.cfg.pts_encoder != "pointnet2":
             with torch.no_grad():
-                return self._module_forward(inp, False, plain=plain)
+                return self._module_forward(inp, False)
         fast = fast_fus_forward if self.cfg.dino == "pointwise" else fast_cls_forward
         with torch.no_grad():
-            return fast(self.pts_encoder, inp, self.cfg.pointnet2, plain=plain)
+            return fast(self.pts_encoder, inp, self.cfg.pointnet2)
 
-    def _module_forward(self, inp, train: bool, generator=None, plain: bool = False):
+    def _module_forward(self, inp, train: bool, generator=None):
         if self.cfg.pts_encoder == "pointnet":
             return self.pts_encoder(inp)
         if self.cfg.pts_encoder == "pointnet_and_pointnet2":
             f1 = self.pts_pointnet_encoder(inp)
-            f2 = self.pts_pointnet2_encoder(inp, train, generator, plain)
+            f2 = self.pts_pointnet2_encoder(inp, train, generator)
             return torch.relu(self.fusion_layer(torch.cat([f1, f2], dim=-1)))
-        return self.pts_encoder(inp, train, generator, plain)
+        return self.pts_encoder(inp, train, generator)
 
     def extract_global_rgb_feature(self, dino_global: torch.Tensor,
                                    roi_center_dir: torch.Tensor) -> torch.Tensor:

@@ -30,12 +30,12 @@ class ImageFeatureProvider:
     def _pixels(self, rgb: torch.Tensor) -> torch.Tensor:
         return rgb.to(self.vit.cls_token.device, torch.float32)
 
-    def patch_features(self, rgb: torch.Tensor, plain: bool = False):
+    def patch_features(self, rgb: torch.Tensor):
         """rgb (B, S, S, 3) normalised -> list of (B, P, dino_dim) float32
         patch tokens of the tapped blocks."""
-        return self.vit(self._pixels(rgb), self.layer_ids, plain=plain)
+        return self.vit(self._pixels(rgb), self.layer_ids)
 
-    def global_feature(self, rgb: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def global_feature(self, rgb: torch.Tensor) -> torch.Tensor:
         """rgb (B, S, S, 3) normalised -> the final normed class token
         (B, dino_dim) float32 (dino='global')."""
-        return self.vit(self._pixels(rgb), plain=plain, return_class_token=True)
+        return self.vit(self._pixels(rgb), return_class_token=True)

@@ -44,7 +44,7 @@ time and are off by default, as in the JAX package.
 
 Dense layers whose JAX counterpart is a flax ``Dense(dtype=bf16)`` return bf16
 here too; those with a float32 ``preferred_element_type`` round the product to
-bf16 (``layers.mm``). ``plain=True`` runs the plain versions of the kernels.
+bf16 (``layers.mm``).
 
 ``ViT`` is the DINOv2-style backbone (``backbone='dinov2_vits16'``), plain
 PyTorch as the JAX package leaves it to XLA: learned ``pos_embed``, optional
@@ -63,11 +63,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from genpose2_tpu_torch.models.layers import dense, mm
-from genpose2_tpu_torch.ops.layernorm import (LN_EPS, fast_add_layernorm,
-                                              fast_add_layernorm_plain, fast_layernorm,
-                                              fast_layernorm_plain, layer_norm)
-from genpose2_tpu_torch.ops.vit_attention import (vit_attention, vit_attention_plain,
-                                                  vit_attention_tm, vit_attention_tm_plain)
+from genpose2_tpu_torch.ops.layernorm import (LN_EPS, fast_add_layernorm, fast_layernorm,
+                                              layer_norm)
+from genpose2_tpu_torch.ops.vit_attention import vit_attention, vit_attention_tm
 
 # The JAX package's two ViT switches (genpose2_tpu/models/vit.py:218, 227),
 # off there and here; read at call time.
@@ -157,7 +155,7 @@ class DinoV3Block(nn.Module):
         self.mlp = _SwiGLU(dim, ffn_hidden, **factory)
         self.ls2 = _LayerScale(dim, device=device)
 
-    def attention(self, h, sin, cos, n_valid: int, dt: torch.dtype, plain: bool):
+    def attention(self, h, sin, cos, n_valid: int, dt: torch.dtype):
         """qkv, RoPE and attention on h (B, N, C) -> proj output in dt; sin,
         cos (N, C) float32, per-head tiled."""
         N, C = h.shape[1], h.shape[2]
@@ -168,41 +166,32 @@ class DinoV3Block(nn.Module):
         padded = N % (8 if dt == torch.float32 else 16) == 0
         if _INKERNEL_ROPE and padded:
             hd = C // H
-            attend = vit_attention_tm_plain if plain else vit_attention_tm
-            att = attend(q, k, v, H, n_valid, sin=sin[:, :hd], cos=cos[:, :hd])
+            att = vit_attention_tm(q, k, v, H, n_valid, sin=sin[:, :hd], cos=cos[:, :hd])
         else:
             sin_d, cos_d = sin.to(dt), cos.to(dt)
             q = q * cos_d + _rotate_half(q, H) * sin_d
             k = k * cos_d + _rotate_half(k, H) * sin_d
-            if padded:
-                attend = vit_attention_tm_plain if plain else vit_attention_tm
-            else:
-                attend = vit_attention_plain if plain else vit_attention
-            att = attend(q, k, v, H, n_valid)
+            att = (vit_attention_tm if padded else vit_attention)(q, k, v, H, n_valid)
         return dense(att, self.attn.proj, dt)
 
-    def forward(self, x, sin, cos, n_valid: int, dtype: Optional[torch.dtype], plain: bool,
-                pending=None):
+    def forward(self, x, sin, cos, n_valid: int, dtype: Optional[torch.dtype], pending=None):
         """-> (x, pending): with the tail deferred (``_DEFER_TAIL`` on a bf16
         stream) the residual stream without this block's tail and its
         (h, ls2.gamma); otherwise the full residual stream and None."""
         dt = dtype or torch.float32
         defer = dtype is not None and _DEFER_TAIL
         if defer and pending is None:
-            ln = fast_layernorm_plain if plain else fast_layernorm
-            h = ln(x.to(dt), self.norm1.weight, self.norm1.bias)
+            h = fast_layernorm(x.to(dt), self.norm1.weight, self.norm1.bias)
         elif defer:
-            add_ln = fast_add_layernorm_plain if plain else fast_add_layernorm
-            x, h = add_ln(x.to(dt), pending[0].to(dt), pending[1], self.norm1.weight,
-                          self.norm1.bias)
+            x, h = fast_add_layernorm(x.to(dt), pending[0].to(dt), pending[1], self.norm1.weight,
+                                      self.norm1.bias)
         else:
             assert pending is None
             h = layer_norm(x, self.norm1.weight, self.norm1.bias)
-        h = self.attention(h, sin, cos, n_valid, dt, plain)
+        h = self.attention(h, sin, cos, n_valid, dt)
         if dtype is not None:
-            add_ln = fast_add_layernorm_plain if plain else fast_add_layernorm
-            x, h = add_ln(x.to(dt), h.to(dt), self.ls1.gamma, self.norm2.weight,
-                          self.norm2.bias)
+            x, h = fast_add_layernorm(x.to(dt), h.to(dt), self.ls1.gamma, self.norm2.weight,
+                                      self.norm2.bias)
         else:
             x = x + (h * self.ls1.gamma).to(dt)
             h = layer_norm(x, self.norm2.weight, self.norm2.bias)
@@ -246,7 +235,7 @@ class DinoV3ViT(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
     @torch.no_grad()
-    def forward(self, x: torch.Tensor, layer_ids: Sequence[int] = (), plain: bool = False,
+    def forward(self, x: torch.Tensor, layer_ids: Sequence[int] = (),
                 return_class_token: bool = False):
         """x (B, S, S, 3) -> [(B, (S/p)^2, dim) float32 for each tapped block,
         in block order] (a block listed twice is tapped once, as in the JAX
@@ -271,7 +260,7 @@ class DinoV3ViT(nn.Module):
 
         outputs, pending = [], None
         for i, blk in enumerate(self.blocks):
-            tokens, pending = blk(tokens, sin, cos, N, self.dtype, plain, pending)
+            tokens, pending = blk(tokens, sin, cos, N, self.dtype, pending)
             if i in layer_ids:
                 full = _materialize(tokens, pending)
                 outputs.append(layer_norm(full, self.norm.weight, self.norm.bias)[:, num_prefix:N])
@@ -357,10 +346,9 @@ class ViT(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
     @torch.no_grad()
-    def forward(self, x: torch.Tensor, layer_ids: Sequence[int] = (), plain: bool = False,
+    def forward(self, x: torch.Tensor, layer_ids: Sequence[int] = (),
                 return_class_token: bool = False):
-        """As ``DinoV3ViT.forward``; ``plain`` changes nothing (no kernel
-        runs here)."""
+        """As ``DinoV3ViT.forward`` (no kernel runs here)."""
         B = x.shape[0]
         tokens, _, _ = _patch_tokens(self.patch_embed, x, self.patch_size,
                                      self.dtype or torch.float32)

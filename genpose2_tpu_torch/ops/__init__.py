@@ -1,6 +1,6 @@
 """Point, sampler, attention and LayerNorm ops. Each op with a kernel
 launches it on CUDA tensors and runs its plain PyTorch version on CPU
-tensors."""
+tensors or inside ``_cuda.plain_versions()``: ``_cuda.launches`` decides."""
 
 from genpose2_tpu_torch.ops.ball_query import ball_count, ball_query
 from genpose2_tpu_torch.ops.fps import furthest_point_sample

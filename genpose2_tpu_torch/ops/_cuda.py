@@ -10,6 +10,11 @@ edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing here runs at import: the CPU tests import every module of the port
 on a machine without ``nvcc``.
 
+Which version of an op runs is decided here alone: each op wrapper asks
+``launches(t)`` and runs its plain PyTorch version where that is false (a CPU
+tensor, or any tensor inside ``plain_versions()``, the card tests' scope);
+otherwise it launches its kernel or raises, and never falls back.
+
 ``launch_counts`` is one of the port's counters (``utils/profiling.py`` holds
 the others, and ``profiling.reset_counters()`` resets them all): each op
 wrapper adds one to its kernel's entry where it launches the kernel, and
@@ -22,6 +27,7 @@ nowhere else, so a run can show that the main path went through the kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +36,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
 import torch
 
@@ -54,6 +60,25 @@ launch_counts: collections.Counter = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_plain = False  # inside plain_versions()
+
+
+@contextlib.contextmanager
+def plain_versions() -> Iterator[None]:
+    """Inside the block every op runs its plain PyTorch version, on any
+    device; nested blocks and exceptions restore what was before."""
+    global _plain
+    saved, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = saved
+
+
+def launches(t: torch.Tensor) -> bool:
+    """Whether an op on ``t`` launches its kernel: ``t`` is off the CPU and
+    the call is outside ``plain_versions()``."""
+    return t.device.type != "cpu" and not _plain
 
 
 def reset_launch_counts() -> None:

@@ -9,7 +9,7 @@ slot.
 
 ``ball_query`` and ``ball_count`` launch their CUDA kernels
 (``csrc/ball_query.cu``, ``csrc/ball_count.cu``) on a CUDA tensor and run
-``ball_query_plain`` / ``ball_count_plain`` on a CPU tensor. The training
+``ball_query_plain`` / ``ball_count_plain`` otherwise (``_cuda.launches``). The training
 path's module forward calls ``ball_query``; the serving path's fused SA
 kernel finds its own hits.
 """
@@ -77,7 +77,7 @@ def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
                nsample: int) -> torch.Tensor:
     """The first ``nsample`` in-radius point indices of each centroid:
     (B, N, 3), (B, M, 3) -> (B, M, nsample) int32."""
-    if xyz.device.type == "cpu":
+    if not _cuda.launches(xyz):
         return ball_query_plain(xyz, new_xyz, radius, nsample)
     return _ball_query_cuda(xyz.detach().float().contiguous(),
                             new_xyz.detach().float().contiguous(), radius, nsample)
@@ -108,6 +108,6 @@ def _ball_count_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float) ->
 
 def ball_count(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float) -> torch.Tensor:
     """Number of in-radius points per centroid: (B, N, 3), (B, M, 3) -> (B, M) int32."""
-    if xyz.device.type == "cpu":
+    if not _cuda.launches(xyz):
         return ball_count_plain(xyz, new_xyz, radius)
     return _ball_count_cuda(xyz.detach().contiguous(), new_xyz.detach().contiguous(), radius)

@@ -1228,16 +1228,15 @@ cudaError_t launch_plan(Params& P, int bf16, cudaStream_t st) {
 }  // namespace
 
 // One fused integration; see Params for the layouts. bf16 != 0: the four
-// weight matrices are bf16, otherwise f32. rounds, wgmma (each may be null):
-// the rounds of blocks the launch takes on the card, and 1 where its
-// products ran on wgmma (plan.cuh:rk4_route). Returns a CUDA error code, or
+// weight matrices are bf16, otherwise f32. rounds (may be null): the rounds
+// of blocks the launch takes on the card. Returns a CUDA error code, or
 // -1 for shapes the kernel does not take (D above 16, P1, P2 or H1 not a
 // multiple of 256, H1 above 2,048).
 extern "C" int gp2_rk4(const float* x0, float* out, const float* stat, const float* trows,
                        const float* scal, const void* w0, const float* b0, const void* w1,
                        const float* b1, const void* wp, const void* w2, const float* b2,
                        int R, int D, int P1, int P2, int H1, int n, int bf16, void* stream,
-                       int* rounds, int* wgmma) {
+                       int* rounds) {
   Params P = {x0, out, stat, trows, scal, w0, b0, w1, b1, wp, w2, b2, R, D, P1, P2, H1, n};
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1245,6 +1244,5 @@ extern "C" int gp2_rk4(const float* x0, float* out, const float* stat, const flo
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rk4_route(R, D, P1, P2, H1, bf16, sms, &P.plan) != 0) return -1;
   if (rounds != nullptr) *rounds = P.plan.rounds;
-  if (wgmma != nullptr) *wgmma = P.plan.wgmma;
   return static_cast<int>(launch_plan(P, bf16, static_cast<cudaStream_t>(stream)));
 }

@@ -5,7 +5,8 @@ squared distance to the picks so far, ties to the lowest index.
 
 ``furthest_point_sample`` launches the CUDA kernel (``csrc/fps.cu``) on a
 CUDA tensor, for any N (past ``MAX_REGISTER_POINTS`` with a float32 scratch
-of B x N for the running distances), and runs ``fps_plain`` on a CPU tensor.
+of B x N for the running distances), and runs ``fps_plain`` otherwise
+(``_cuda.launches``).
 """
 
 from __future__ import annotations
@@ -72,6 +73,6 @@ def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """xyz (B, N, 3) float32 -> (B, npoint) int32 sample indices."""
-    if xyz.device.type == "cpu":
+    if not _cuda.launches(xyz):
         return fps_plain(xyz, npoint)
     return _fps_cuda(xyz.detach().contiguous(), npoint)

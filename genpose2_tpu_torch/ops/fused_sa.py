@@ -13,7 +13,7 @@ folded-BN affine, the SharedMLP chain and the max over slots.
 packages run the same kernels on every stage.
 
 Each op launches its CUDA kernel (``csrc/fused_sa.cu``) on CUDA tensors and
-runs its plain version on CPU tensors. The plain versions are the JAX
+runs its plain version otherwise (``_cuda.launches``). The plain versions are the JAX
 package's ``fused_group_mlp_pool_reference`` on the indices of
 ``ball_query_plain`` (or the given ones), with the kernel's operand rounding:
 the input of each product is rounded to the weights' dtype and the product is
@@ -232,7 +232,7 @@ def fused_sa_stage(xyz: torch.Tensor, new_xyz: torch.Tensor, projs, center_projs
     affines_list[s] = [(a, c) per layer incl. the projection's], each (h,)
     float32, weights_list[s] = [W (h_in, h_out) in the compute dtype]
     -> (B, M, sum_s C_out_s) float32."""
-    if xyz.device.type == "cpu":
+    if not _cuda.launches(xyz):
         return fused_sa_stage_plain(xyz, new_xyz, projs, center_projs, affines_list,
                                     weights_list, radii, nsamples)
     packed = [_contiguous(a, w) for a, w in zip(affines_list, weights_list)]
@@ -249,7 +249,7 @@ def fused_sa_scale(xyz: torch.Tensor, new_xyz: torch.Tensor, proj: torch.Tensor,
     ``fused_sa_stage`` -> (B, M, C_out) float32. new_xyz may come in any order
     (the dense stage sorts it by ``ball_count``); each centroid's output
     depends on its own hits only."""
-    if xyz.device.type == "cpu":
+    if not _cuda.launches(xyz):
         return fused_sa_scale_plain(xyz, new_xyz, proj, center_proj, affines, weights, radius,
                                     nsample)
     affines, weights = _contiguous(affines, weights)
@@ -264,7 +264,7 @@ def fused_group_mlp_pool(proj: torch.Tensor, idx: torch.Tensor, center_proj: tor
     in the compute dtype, idx (B, M, S) integer, center_proj (B, M, h1)
     float32, affines / weights as one scale of ``fused_sa_stage``
     -> (B, M, C_out) float32. An index outside [0, N) groups a zero row."""
-    if proj.device.type == "cpu":
+    if not _cuda.launches(proj):
         return fused_group_mlp_pool_plain(proj, idx, center_proj, affines, weights)
     affines, weights = _contiguous(affines, weights)
     return _group_mlp_pool_cuda(proj.contiguous(), idx.to(torch.int32).contiguous(),

@@ -16,7 +16,7 @@ LayerNorm default, which every LayerNorm of the port uses):
 
 Each launches ``csrc/layernorm.cu`` on CUDA tensors (rows of up to 8,192:
 past 1,024 the kernel's wide route, a block a row) and runs its ``_plain``
-version on CPU tensors.
+version otherwise (``_cuda.launches``).
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ def _vec(t: torch.Tensor) -> torch.Tensor:
 def fast_residual_layernorm(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
                             bias: torch.Tensor, eps: float = LN_EPS):
     """LN(x + h) over the last axis: x, h (..., D) -> (..., D) in x's dtype."""
-    if x.device.type == "cpu":
+    if not _cuda.launches(x):
         return fast_residual_layernorm_plain(x, h, scale, bias, eps)
     return _residual_ln_cuda(x.contiguous(), h.contiguous(), _vec(scale), _vec(bias), eps)
 
@@ -125,7 +125,7 @@ def fast_residual_layernorm(x: torch.Tensor, h: torch.Tensor, scale: torch.Tenso
 def fast_add_layernorm(x: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
                        scale: torch.Tensor, bias: torch.Tensor, eps: float = LN_EPS):
     """(x + gamma*h, LN(x + gamma*h)), both in x's dtype (h must match it)."""
-    if x.device.type == "cpu":
+    if not _cuda.launches(x):
         return fast_add_layernorm_plain(x, h, gamma, scale, bias, eps)
     return _add_ln_cuda(x.contiguous(), h.contiguous(), _vec(gamma), _vec(scale), _vec(bias),
                         eps)
@@ -134,6 +134,6 @@ def fast_add_layernorm(x: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
 def fast_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float = LN_EPS):
     """LN(x) over the last axis with float32 statistics, in x's dtype."""
-    if x.device.type == "cpu":
+    if not _cuda.launches(x):
         return fast_layernorm_plain(x, scale, bias, eps)
     return _ln_cuda(x.contiguous(), _vec(scale), _vec(bias), eps)

@@ -3,7 +3,7 @@
 ``fused_rk4_integrate`` runs the whole ``num_steps`` integration as one CUDA
 kernel (``csrc/ode_rk4.cu``) on CUDA tensors, with the score net folded by
 ``models/scorenet.py:fast_score_weights`` and everything that depends on t
-precomputed by ``_time_tables``. On CPU tensors it runs
+precomputed by ``_time_tables``. Otherwise (``_cuda.launches``) it runs
 ``fused_rk4_plain``: the per-step RK4 loop of ``diffusion/samplers.py``
 (method='fixed') over the fast score function, which is the formulation the
 JAX kernel is held against (tests/test_ode_fused.py there).
@@ -170,18 +170,16 @@ def _rk4_cuda(x0, weights, sde, T0, num_steps, compute_dtype):
     tensors, ints = rk4_operands(x0, weights, sde, T0, num_steps, compute_dtype)
     lib = _cuda.library("ode_rk4")
     lib.gp2_rk4.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.gp2_rk4.restype = ctypes.c_int
-    rounds, wgmma = ctypes.c_int(0), ctypes.c_int(0)
+    rounds = ctypes.c_int(0)
     code = lib.gp2_rk4(*(t.data_ptr() for t in tensors), *ints, _cuda.stream_ptr(x0),
-                       ctypes.byref(rounds), ctypes.byref(wgmma))
+                       ctypes.byref(rounds))
     _cuda.check(lib, code, "fused_rk4_integrate")
     _cuda.launch_counts["fused_rk4"] += 1
     # the launch's rounds of blocks on the card, from its plan (one where
     # every block of 64 rows or fewer fits on an SM at once)
     _cuda.launch_counts["fused_rk4_rounds"] += rounds.value
-    # launches whose float32 products ran on wgmma (plan.cuh:rk4_route)
-    _cuda.launch_counts["fused_rk4_wgmma"] += wgmma.value
     return tensors[1]
 
 
@@ -190,6 +188,6 @@ def fused_rk4_integrate(x0: torch.Tensor, weights: dict, sde, T0: float, num_ste
     """Integrate the reverse probability-flow ODE from T0 to sde.eps in
     ``num_steps`` RK4 steps. x0 (R, D) float32; weights from
     ``fast_score_weights`` with ``static`` (R, H1). Returns (R, D) float32."""
-    if x0.device.type == "cpu":
+    if not _cuda.launches(x0):
         return fused_rk4_plain(x0, weights, sde, T0, num_steps, compute_dtype)
     return _rk4_cuda(x0.contiguous(), weights, sde, T0, num_steps, compute_dtype)

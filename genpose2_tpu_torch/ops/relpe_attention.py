@@ -14,7 +14,7 @@ per query tile from xyz and never writes a (B, H, M, M) tensor; the bias MLP's
 second layers and the fusion layer are folded into per-head constants first
 (``fold_pe``). The kernel takes 8 heads of an even width D = C / 8 up to
 128 (the flagship's widest stage); a wider head raises RuntimeError with
-CUDA's invalid-value code. On CPU tensors it runs ``relpe_attention_plain``: the
+CUDA's invalid-value code. Otherwise (``_cuda.launches``) it runs ``relpe_attention_plain``: the
 module math (build the bias, then softmax attention), a few objects at a time.
 """
 
@@ -92,7 +92,7 @@ def _relpe_cuda(xyz, q, k, v, pe, num_heads, compute_dtype):
 def relpe_attention(xyz: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pe,
                     num_heads: int, compute_dtype: str = "float32") -> torch.Tensor:
     """xyz (B, M, 3); q, k, v (B, M, C) -> (B, M, C) float32 attention output."""
-    if q.device.type == "cpu":
+    if not _cuda.launches(q):
         return relpe_attention_plain(xyz, q, k, v, pe, num_heads, compute_dtype)
     cdt = compute_dtype_of(compute_dtype)
     return _relpe_cuda(xyz.detach().float().contiguous(), q.to(cdt).contiguous(),

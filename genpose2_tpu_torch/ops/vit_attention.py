@@ -19,7 +19,7 @@ values the caller slices off.
   head-major and pads N for Mosaic; the result is the same function.
 
 Each launches its entry of ``csrc/vit_attention.cu`` on CUDA tensors and runs
-its ``_plain`` version on CPU tensors, for any N and head dims to 128 (a wider
+its ``_plain`` version otherwise (``_cuda.launches``), for any N and head dims to 128 (a wider
 head raises a ValueError).
 """
 
@@ -123,7 +123,7 @@ def vit_attention_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_head
     """q, k, v (B, N, C) -> (B, N, C) float32; keys >= n_valid masked; with
     ``sin``/``cos`` (N, C // num_heads) RoPE on q and k inside the kernel."""
     n_valid = q.shape[1] if n_valid is None else n_valid
-    if q.device.type == "cpu":
+    if not _cuda.launches(q):
         return vit_attention_tm_plain(q, k, v, num_heads, n_valid, sin, cos)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if sin is None:
@@ -138,7 +138,7 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: 
                   n_valid: Optional[int] = None) -> torch.Tensor:
     """q, k, v (B, N, C), any N -> (B, N, C) float32; keys >= n_valid masked."""
     n_valid = q.shape[1] if n_valid is None else n_valid
-    if q.device.type == "cpu":
+    if not _cuda.launches(q):
         return vit_attention_plain(q, k, v, num_heads, n_valid)
     return _vit_attention_cuda("gp2_vit_attention_unpadded", "vit_attention_unpadded",
                                q.contiguous(), k.contiguous(), v.contiguous(), num_heads,

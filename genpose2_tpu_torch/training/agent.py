@@ -201,7 +201,7 @@ class PoseAgent(_Trainable):
 
     def loss_and_grads(self, state: TrainState, batch: dict,
                        generator: Optional[torch.Generator] = None,
-                       draws: Optional[dict] = None, plain: bool = False, teacher=None):
+                       draws: Optional[dict] = None, teacher=None):
         """The training loss of a batch, its gradients and its BatchNorm
         statistics: (loss, metrics, {name: gradient or None} over
         ``state.params``, bn_stats for ``apply_gradients``). The model and
@@ -221,18 +221,18 @@ class PoseAgent(_Trainable):
         ``generator`` (on the agent's device) in that order, unless ``draws``
         gives the DSM draws ``t`` (R, B, 1) and ``z`` (R, B, D), the EDM draws
         ``z`` (R, B, D) and ``u`` (R, B, 1), and the ranking times ``rank_t``
-        (B * K, 1). ``plain`` runs the plain versions of the kernels."""
+        (B * K, 1)."""
         dev = self.device
         draws = draws or {}
         with torch.no_grad():  # the frozen backbone
-            batch = self.with_image_features(batch, plain)
+            batch = self.with_image_features(batch)
         gt = batch["zero_mean_gt_pose"].to(dev, torch.float32)
         B, D = gt.shape
         R = self.cfg.train.repeat_num
         self.model.train()
         try:
             with torch.enable_grad(), batch_stats() as bn_stats:
-                feat = self._features(batch, train=True, generator=generator, plain=plain)
+                feat = self._features(batch, train=True, generator=generator)
                 rgb = self._global_rgb(batch)
                 if self.use_decoder:
                     z, u = ((draws["z"].to(dev), draws["u"].to(dev)) if "u" in draws
@@ -254,7 +254,7 @@ class PoseAgent(_Trainable):
                             return self.model.energy_score(feat_rep, x, tt, rgb_rep)
                     target = None
                     if teacher is not None:
-                        target = _teacher_score(teacher, batch, t.shape[0], plain)
+                        target = _teacher_score(teacher, batch, t.shape[0])
                     loss = dsm_loss(score_fn, gt, self.sde, t, z, teacher_score_fn=target)
                 metrics = {"score_loss": loss.detach()}
                 if self.agent_type == "energy" and "candidate_poses" in batch:
@@ -304,47 +304,44 @@ class PoseAgent(_Trainable):
         return ranking_loss(sort_results(energy, batch["candidate_metrics"].to(self.device)))
 
     def _features(self, batch: dict, train: bool = False,
-                  generator: Optional[torch.Generator] = None, plain: bool = False):
+                  generator: Optional[torch.Generator] = None):
         """The point feature of a batch whose image features are attached."""
         pts = batch["pts"].to(self.device, torch.float32)
         if self.cfg.model.dino != "pointwise":
-            return self.model.extract_pts_feature(pts, plain=plain, train=train,
-                                                  generator=generator)
+            return self.model.extract_pts_feature(pts, train=train, generator=generator)
         layers = [t.to(self.device, torch.float32) for t in batch["dino_layers"]]
-        return self.model.extract_pts_feature(pts, plain, layers, batch["roi_xs"].to(self.device),
+        return self.model.extract_pts_feature(pts, layers, batch["roi_xs"].to(self.device),
                                               batch["roi_ys"].to(self.device), train=train,
                                               generator=generator)
 
-    def with_image_features(self, batch: dict, plain: bool = False) -> dict:
+    def with_image_features(self, batch: dict) -> dict:
         """The batch with the backbone's features computed from ``roi_rgb``
         (B, S, S, 3): ``dino_layers`` (dino='pointwise') or ``dino_global``
         (dino='global'), unless it carries them already (then the backbone
-        does not run). ``plain`` runs the plain versions of the backbone's
-        kernels."""
+        does not run)."""
         key = "dino_global" if self.cfg.model.dino == "global" else "dino_layers"
         if self.provider is None or key in batch or "roi_rgb" not in batch:
             return batch
         with span("backbone"):
             if key == "dino_global":
                 return dict(batch,
-                            dino_global=self.provider.global_feature(batch["roi_rgb"], plain))
-            return dict(batch, dino_layers=self.provider.patch_features(batch["roi_rgb"], plain))
+                            dino_global=self.provider.global_feature(batch["roi_rgb"]))
+            return dict(batch, dino_layers=self.provider.patch_features(batch["roi_rgb"]))
 
     @torch.no_grad()
-    def extract_features(self, batch: dict, plain: bool = False,
-                         state: Optional[TrainState] = None, use_ema: bool = True):
+    def extract_features(self, batch: dict, state: Optional[TrainState] = None,
+                         use_ema: bool = True):
         """batch['pts'] (B, N, 3) -> (pts_feat (B, C_final), rgb_feat). With
         dino='pointwise' the batch also carries ``roi_xs``/``roi_ys`` (B, N)
         and ``dino_layers`` or ``roi_rgb``; with dino='global'
         ``roi_center_dir`` (B, 3) and ``dino_global`` or ``roi_rgb`` (see
         with_image_features), and rgb_feat is the global rgb feature (B,
         dino_dim + global_embedding_dim); otherwise rgb_feat is None.
-        ``plain`` runs the plain versions of the kernels; ``state`` and
-        ``use_ema`` pick the weights (see ``weights``)."""
+        ``state`` and ``use_ema`` pick the weights (see ``weights``)."""
         with span(f"{self.agent_type}.encode"):
-            batch = self.with_image_features(batch, plain)
+            batch = self.with_image_features(batch)
             with self.weights(state, use_ema):
-                return self._features(batch, plain=plain), self._global_rgb(batch)
+                return self._features(batch), self._global_rgb(batch)
 
     def _pose_net(self, state: Optional[TrainState], use_ema: bool):
         """The pose net, or with a state whose EMA weights are asked for a
@@ -412,14 +409,14 @@ class PoseAgent(_Trainable):
                           generator: Optional[torch.Generator] = None,
                           prior: Optional[torch.Tensor] = None,
                           noise: Optional[torch.Tensor] = None,
-                          plain: bool = False, state: Optional[TrainState] = None,
-                          use_ema: bool = True, stats: Optional[dict] = None) -> torch.Tensor:
+                          state: Optional[TrainState] = None, use_ema: bool = True,
+                          stats: Optional[dict] = None) -> torch.Tensor:
         """``repeat_num`` pose candidates per object, (B, K, D), camera frame.
 
         ``method``: 'rk45' (the adaptive ODE solver, cfg.sampler's atol, rtol
         and max_rk45_steps), 'fixed' (``num_steps`` RK4 steps; with
         cfg.sampler.fused_fixed and a score agent one fused kernel launch,
-        otherwise or with ``plain`` the per-step loop), 'euler', 'pc'
+        otherwise the per-step loop), 'euler', 'pc'
         (predictor-corrector from t = 1, ``T0`` plays no part; snr
         cfg.sampler.snr) or 'edm' (the Heun sampler, decoder agents only,
         no warm start). ``features`` (pts_feat, rgb_feat) from
@@ -441,7 +438,7 @@ class PoseAgent(_Trainable):
                                  "warm-started sampling)")
         with self.weights(state, use_ema):
             pts_feat, rgb_feat = (features if features is not None
-                                  else self.extract_features(batch, plain))
+                                  else self.extract_features(batch))
             B, K, D = pts_feat.shape[0], repeat_num, self.cfg.model.pose_dim
             feat_rep = pts_feat.repeat_interleave(K, dim=0)
             rgb_rep = None if rgb_feat is None else rgb_feat.repeat_interleave(K, dim=0)
@@ -470,7 +467,7 @@ class PoseAgent(_Trainable):
                                    noise=noise, **common)
                 return poses.reshape(B, K, D)
             # 'fixed': the whole integration as one kernel launch over the folded net
-            fused = w if method == "fixed" and self.cfg.sampler.fused_fixed and not plain else None
+            fused = w if method == "fixed" and self.cfg.sampler.fused_fixed else None
             sc = self.cfg.sampler
             poses, _ = ode_sampler(
                 sfn, self.sde, B * K, D, T0=T0, init_x=init_x, num_steps=num_steps,
@@ -483,18 +480,17 @@ class PoseAgent(_Trainable):
     @span("energy.rank")
     def get_energy(self, batch: dict, poses: torch.Tensor, fixed_t: Optional[float] = 1e-5,
                    features=None, generator: Optional[torch.Generator] = None,
-                   t: Optional[torch.Tensor] = None, plain: bool = False,
+                   t: Optional[torch.Tensor] = None,
                    state: Optional[TrainState] = None, use_ema: bool = True) -> torch.Tensor:
         """Energy of camera-frame candidates (B, K, D) -> (B, K, 2); the cloud
         center is subtracted first. Diffusion time: ``fixed_t`` for every row,
         or with ``fixed_t=None`` (detection mode) one draw per row from
         U[1e-5, 1e-4) with ``generator``, unless ``t`` (B * K, 1) gives them.
-        ``plain`` runs the plain versions of the encoder's kernels; ``state``
-        and ``use_ema`` pick the weights (see ``weights``)."""
+        ``state`` and ``use_ema`` pick the weights (see ``weights``)."""
         assert self.agent_type == "energy"
         with self.weights(state, use_ema):
             pts_feat, rgb_feat = (features if features is not None
-                                  else self.extract_features(batch, plain))
+                                  else self.extract_features(batch))
             B, K, D = poses.shape
             poses = poses.to(self.device).clone()
             center = batch.get("pts_center")
@@ -518,13 +514,13 @@ def _repeat(x: Optional[torch.Tensor], r: int) -> Optional[torch.Tensor]:
     return None if x is None else x[None].expand(r, *x.shape).reshape(r * x.shape[0], -1)
 
 
-def _teacher_score(teacher, batch: dict, repeat: int, plain: bool = False):
+def _teacher_score(teacher, batch: dict, repeat: int):
     """The distillation target: (x, t) -> the teacher agent's score at
     (x, t) over its own features of ``batch``, from its state's EMA
     weights, without gradients. ``teacher`` = (score agent, train state)."""
     agent, state = teacher
     with torch.no_grad():
-        feat, rgb = agent.extract_features(batch, plain, state=state)
+        feat, rgb = agent.extract_features(batch, state=state)
     feat_rep, rgb_rep = _repeat(feat, repeat), _repeat(rgb, repeat)
 
     def score(x, t):
@@ -538,16 +534,15 @@ def _teacher_score(teacher, batch: dict, repeat: int, plain: bool = False):
 def calc_likelihood(agent: PoseAgent, batch: dict, poses: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     epsilon: Optional[torch.Tensor] = None,
-                    state: Optional[TrainState] = None, plain: bool = False,
+                    state: Optional[TrainState] = None,
                     stats: Optional[dict] = None) -> torch.Tensor:
     """The log-likelihood in bits (B, K) of camera-frame poses (B, K, D)
     under the agent's probability-flow ODE (``ode_likelihood``; the cloud
     center subtracted first). ``epsilon`` (B * K, D) is the divergence
     estimate's N(0, 1) direction, drawn with ``generator`` when None;
-    ``state`` picks EMA weights, ``plain`` the encoder kernels' plain
-    versions; ``stats`` goes to ``rk45_integrate``."""
+    ``state`` picks EMA weights; ``stats`` goes to ``rk45_integrate``."""
     with agent.weights(state):
-        pts_feat, rgb_feat = agent.extract_features(batch, plain)
+        pts_feat, rgb_feat = agent.extract_features(batch)
         B, K, D = poses.shape
         poses = poses.to(agent.device, torch.float32).clone()
         center = batch.get("pts_center")

@@ -19,9 +19,6 @@ Each turn records ``device_ms`` (torch.profiler, chip_smoke.py's: the kernel
 alone) and whether the output is within the gpu tests' bounds of the plain
 version (float32 2e-4 / 1e-4, bf16 1e-2).
 
-Each turn of this checkout names the route its plan took (``route``:
-``wgmma`` or ``mma.sync``, plan.cuh:rk4_route).
-
 Variants (``variants``): this checkout's source once more, with ``-Xptxas
 -v`` (registers and spills go to FILE), beside an entry that takes the row
 tile and the ring (float32, the wgmma route: rows a multiple of 8, nbuf
@@ -140,12 +137,13 @@ def main():
         also[label] = ctypes.CDLL(out)
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     own = _cuda.library("ode_rk4")
-    own.gp2_rk4.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr] + [ctypes.POINTER(c_int)] * 2
+    own.gp2_rk4.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr, ptr]  # the stream, rounds
     parent = libs["parent", "ode_rk4"]
-    parent.gp2_rk4.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr, ptr]  # the stream, rounds
+    # the stream, rounds and a null for the out-pointer of an entry that still has
+    # a second one (a C function ignores an argument past its own)
+    parent.gp2_rk4.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr, ptr, ptr]
     for lib in [libs["variant", "ode_rk4"], *also.values()]:
         lib.gp2_rk4_variant.argtypes = [ptr] * 12 + [c_int] * 7 + [ptr] + [c_int] * 4
-    route = c_int(0)
 
     gen = torch.Generator().manual_seed(smoke.SEED + 20)
     sde = init_sde("ve")
@@ -165,9 +163,9 @@ def main():
     def call(kind, tensors, ints, variant=None):
         ptrs = [t.data_ptr() for t in tensors]
         if kind == "parent":
-            code = parent.gp2_rk4(*ptrs, *ints, stream(), None)
+            code = parent.gp2_rk4(*ptrs, *ints, stream(), None, None)
         elif kind == "new":
-            code = own.gp2_rk4(*ptrs, *ints, stream(), None, ctypes.byref(route))
+            code = own.gp2_rk4(*ptrs, *ints, stream(), None)
         else:
             code = kind.gp2_rk4_variant(*ptrs, *ints, stream(), *variant)
         checked(code, f"rk4 {variant}")
@@ -205,11 +203,8 @@ def main():
                     def fn(turn=turn):
                         return call(turn, tensors, ints)
                     ok = within(fn().clone(), want, dtype)
-                    line = {**shape, "variant": turn, "turn": i, "device_ms": device_ms(fn, reps),
-                            "within": ok}
-                    if turn == "new":
-                        line["route"] = "wgmma" if route.value else "mma.sync"
-                    emit(line)
+                    emit({**shape, "variant": turn, "turn": i, "device_ms": device_ms(fn, reps),
+                          "within": ok})
             if "variants" in phases and label in ("request", "tracking", "cells_100"):
                 table = VARIANTS if dtype == "float32" else BF16_VARIANTS
                 for v in table.get(rows, []):

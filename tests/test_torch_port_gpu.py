@@ -10,6 +10,7 @@ Discrete outputs (FPS indices, ball counts) must match exactly; float outputs
 to the tolerance stated at each assert.
 """
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -388,11 +389,8 @@ def test_rk4_kernel_flagship_widths(card, dtype, mode, R, steps, T0):
         w = fast_score_weights(net, feat)
         assert (w["W1_pose"].shape, w["W2bd"].shape) == ((256, 768), (768, 9))
         before = _cuda.launch_counts["fused_rk4"]
-        wgmma = _cuda.launch_counts["fused_rk4_wgmma"]
         got = fused_rk4_integrate(x0, w, sde, T0, steps, dtype)
         assert _cuda.launch_counts["fused_rk4"] == before + 1
-        # float32 on the wgmma route (plan.cuh:rk4_route), bf16 on mma.sync
-        assert _cuda.launch_counts["fused_rk4_wgmma"] == wgmma + (dtype == "float32")
         want = fused_rk4_plain(x0, w, sde, T0, steps, dtype)
     # chip_smoke.py's bounds: f32 the JAX package's for the fused kernel
     # against the scan; bf16 looser (t rows kept f32 where the scan rounds)
@@ -419,13 +417,10 @@ def test_rk4_kernel_one_launch_one_round(card, dtype):
         fused_rk4_integrate(x0, w, sde, 0.55, 5, dtype)  # built and loaded
         torch.cuda.synchronize()
         before = _cuda.launch_counts["fused_rk4_rounds"]
-        wgmma = _cuda.launch_counts["fused_rk4_wgmma"]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fused_rk4_integrate(x0, w, sde, 0.55, 5, dtype)
             torch.cuda.synchronize()
     assert _cuda.launch_counts["fused_rk4_rounds"] == before + 1
-    # fused_rk4_wgmma: one a launch on the wgmma route (float32), none on bf16
-    assert _cuda.launch_counts["fused_rk4_wgmma"] == wgmma + (dtype == "float32")
     rx = re.compile(r"\brk4_kernel\b")
     launches = sum(ev.count for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA and rx.search(ev.key))
@@ -902,7 +897,8 @@ def test_vit7b_frame_on_card(card):
     out = eng.serve_batch(raw, prior=prior, energy_t=t)
     assert _cuda.launch_counts["vit_attention"] == before.get("vit_attention", 0) + 4
     assert _cuda.launch_counts["add_layernorm"] == before.get("add_layernorm", 0) + 4
-    plain = eng.serve_batch(raw, prior=prior, energy_t=t, plain=True)
+    with _cuda.plain_versions():
+        plain = eng.serve_batch(raw, prior=prior, energy_t=t)
     assert out["candidates"].shape == (n, K, 9) and bool(torch.isfinite(out["candidates"]).all())
     # the kernels' and the plain versions' bf16 backbones differ by a bf16
     # step here and there (test_vit7b_backbone_on_card_matches_plain); eight
@@ -948,7 +944,8 @@ def test_vit7b_backbone_on_card_matches_plain(card):
     got = prov.patch_features(rgb)
     assert _cuda.launch_counts["vit_attention"] == before.get("vit_attention", 0) + 4
     assert _cuda.launch_counts["add_layernorm"] == before.get("add_layernorm", 0) + 4
-    want = prov.patch_features(rgb, plain=True)
+    with _cuda.plain_versions():
+        want = prov.patch_features(rgb)
     for a, b in zip(got, want):
         assert a.shape == (8, 256, 4096)
         # the bf16 stream of two routes: the attention's and the LayerNorm's
@@ -1137,6 +1134,40 @@ def test_tiny_frame_on_card_matches_cpu(card):
                          dim=-1)
 
 
+def test_plain_versions_scope_launches_no_kernel(card):
+    """A whole serve_batch at tiny_flagship_config inside
+    ``_cuda.plain_versions()`` adds 0 to every launch_counts entry; the same
+    call outside it launches the kernels of every layer (backbone, encoders,
+    RK4) and agrees with it as the card and the CPU do."""
+    cfg = tiny_flagship_config()
+    torch.manual_seed(46)
+    eng = GenPose2(cfg, energy=True, scale=True, num_steps=8, device=card)
+    for agent in (eng.score_agent, eng.energy_agent):
+        for module, k in ((agent.model, 47), (agent.provider.vit, 48)):
+            module.load_state_dict(_randomize(copy.deepcopy(module).cpu(), k).state_dict())
+    rng = np.random.default_rng(49)
+    objs = synthetic_frame.random_scene(rng, 3, 160, 120, 150.0, depth=(0.5, 0.8))
+    raw = eng.front_end(synthetic_frame.render(rng, objs, 160, 120, 150.0))
+    n, K = len(raw["mask_ids"]), cfg.eval.eval_repeat_num
+    g = torch.Generator().manual_seed(50)
+    prior = torch.randn(n * K, 9, generator=g) * 0.3
+    t = torch.rand(n * K, 1, generator=g) * 9e-5 + 1e-5
+    eng.serve_batch(raw, prior=prior, energy_t=t)  # every library built and loaded
+    before = dict(_cuda.launch_counts)
+    with _cuda.plain_versions():
+        plain = eng.serve_batch(raw, prior=prior, energy_t=t)
+    assert dict(_cuda.launch_counts) == before
+    out = eng.serve_batch(raw, prior=prior, energy_t=t)
+    launched = {k: v - before.get(k, 0) for k, v in _cuda.launch_counts.items()}
+    assert launched["fused_rk4"] == 1, launched
+    for k in ("fps", "relpe_attention", "residual_layernorm", "vit_attention"):
+        assert launched.get(k, 0) > 0, (k, launched)
+    assert launched.get("fused_sa_stage", 0) + launched.get("fused_sa_scale", 0) > 0, launched
+    # test_tiny_frame_on_card_matches_cpu's bounds
+    torch.testing.assert_close(out["features"], plain["features"], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(out["candidates"], plain["candidates"], rtol=1e-4, atol=5e-4)
+
+
 def _weights(agent):
     sd = dict(agent.model.state_dict())
     sd.update({f"dino.{k}": v for k, v in agent.provider.vit.state_dict().items()})
@@ -1211,7 +1242,8 @@ def test_tiny_evaluator_streaming_on_card_kernels_match_plain(card, tmp_path):
     for plain in (False, True):
         _cuda.reset_launch_counts()
         ev = SingleFrameEvaluator(cfg, s, e, scale_fn, out_dir=str(tmp_path / str(plain)))
-        ev.run_streaming(batches, priors=priors, plain=plain)
+        with _cuda.plain_versions() if plain else contextlib.nullcontext():
+            ev.run_streaming(batches, priors=priors)
         counts = dict(_cuda.launch_counts)
         out[plain] = [dict(np.load(tmp_path / str(plain) / f"batch_{i:06d}.npz"))
                       for i in range(2)]
@@ -1254,10 +1286,8 @@ def test_rk4_kernel_pose_mode_widths(card, dtype, D, head, R, steps, T0):
         w = fast_score_weights(net, feat)
         assert (w["W1_pose"].shape, w["W2bd"].shape) == ((256, 512), (512, D))
         before = _cuda.launch_counts["fused_rk4"]
-        wgmma = _cuda.launch_counts["fused_rk4_wgmma"]
         got = fused_rk4_integrate(x0, w, sde, T0, steps, dtype)
         assert _cuda.launch_counts["fused_rk4"] == before + 1
-        assert _cuda.launch_counts["fused_rk4_wgmma"] == wgmma + (dtype == "float32")
         want = fused_rk4_plain(x0, w, sde, T0, steps, dtype)
     # the bounds of test_rk4_kernel_flagship_widths (chip_smoke.py's)
     atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
@@ -1296,8 +1326,8 @@ def test_segmsg_kernels_match_plain(card, train, monkeypatch):
     launched = {k: _cuda.launch_counts[k] - n for k, n in before.items()}
     assert launched == {"fps": 4, "ball_query": 8}
     assert len(calls) == 12 and all(calls)
-    with torch.no_grad():
-        want = model(pts, train, torch.Generator(card).manual_seed(1), plain=True)
+    with torch.no_grad(), _cuda.plain_versions():
+        want = model(pts, train, torch.Generator(card).manual_seed(1))
     assert got.shape == (8, 1024, 1) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 

@@ -134,7 +134,7 @@ def test_vit7b_entry_matches_the_plain_dinov3(dtype):
     torch.manual_seed(7)
     vit = _randomized(ImageFeatureProvider(_vit7b_model(dtype), device="cpu").vit, 8)
     x = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(9))
-    got = vit(x, (0, 1), plain=True)
+    got = vit(x, (0, 1))
     want = dinov3_plain.forward(vit.state_dict(), x, (0, 1), 2,
                                 torch.bfloat16 if dtype == "bfloat16" else torch.float32)
     assert len(got) == len(want) == 2

@@ -142,8 +142,7 @@ class _Routes:
 
     def __init__(self, monkeypatch):
         self.calls = []
-        for name in ("vit_attention_tm_plain", "vit_attention_plain", "fast_layernorm_plain",
-                     "fast_add_layernorm_plain"):
+        for name in ("vit_attention_tm", "vit_attention", "fast_layernorm", "fast_add_layernorm"):
             fn = getattr(port_vit, name)
             monkeypatch.setattr(port_vit, name, self._wrap(name, fn))
 
@@ -172,15 +171,15 @@ def test_dinov3_switched_taps_and_cls_match_jax(backbone, monkeypatch, switches,
     prov = ImageFeatureProvider(pcfg)
     prov.vit.load_state_dict(dinov3_state_dict(pvars))
     routes = _Routes(monkeypatch)
-    got_taps = prov.patch_features(_t(rgb), plain=True)
-    got_cls = prov.global_feature(_t(rgb), plain=True)
+    got_taps = prov.patch_features(_t(rgb))
+    got_cls = prov.global_feature(_t(rgb))
     # each of the two forwards, two blocks: the route the switches select
     depth, deferred = 2, tail and dtype == "bfloat16"
-    assert routes.count("vit_attention_tm_plain.rope") == (2 * depth if rope else 0)
-    assert routes.count("vit_attention_tm_plain") == (0 if rope else 2 * depth)
-    assert routes.count("vit_attention_plain") == 0
-    assert routes.count("fast_layernorm_plain") == (2 if deferred else 0)
-    assert routes.count("fast_add_layernorm_plain") == (
+    assert routes.count("vit_attention_tm.rope") == (2 * depth if rope else 0)
+    assert routes.count("vit_attention_tm") == (0 if rope else 2 * depth)
+    assert routes.count("vit_attention") == 0
+    assert routes.count("fast_layernorm") == (2 if deferred else 0)
+    assert routes.count("fast_add_layernorm") == (
         2 * (2 * depth - 1) if deferred else (2 * depth if dtype == "bfloat16" else 0))
     assert len(got_taps) == len(want_taps) == 2
     assert got_cls.shape == want_cls.shape == (B, 48) and got_cls.dtype == torch.float32
@@ -221,8 +220,8 @@ def test_unpadded_block_matches_jax(backbone, monkeypatch, rope, dtype):
     vit.load_state_dict({k: v for k, v in sd.items() if not k.startswith("blocks.1.")})
     routes = _Routes(monkeypatch)
     with torch.no_grad():
-        got, pend = vit.blocks[0](_t(x).to(pdt), sin, cos, N, vit.dtype, True)
-    assert pend is None and routes.calls.count("vit_attention_plain") == 1
+        got, pend = vit.blocks[0](_t(x).to(pdt), sin, cos, N, vit.dtype)
+    assert pend is None and routes.calls.count("vit_attention") == 1
     assert got.dtype == pdt and got.shape == (B, N, C)
     # float32: summation order through one block; bf16: the residual stream
     # in bf16, a flipped rounding moves a value by a bf16 step of values ~4
